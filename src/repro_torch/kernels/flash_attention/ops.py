@@ -1,0 +1,49 @@
+"""Public wrapper for the flash attention kernel.
+
+Counterpart of ``repro/kernels/flash_attention/ops.py::attend``: accepts
+the model's (B, S, H, Dh) layout, transposes to the kernel's
+(B, H, S, Dh), pads the sequence to a block multiple (with ``kv_len``
+set only when padding happened, as the reference does) and routes: a
+CUDA tensor goes through the hand-written kernel, or to the plain
+version only when the caller asks with ``use_kernel=False``; a CPU
+tensor goes through the plain version.
+
+Forward only: the reference's backward (the VJP of ``ref.py``) waits for
+the training slice.
+"""
+from __future__ import annotations
+
+import torch.nn.functional as F
+
+from repro_torch.kernels import use_kernel_for
+from repro_torch.kernels.flash_attention import kernel
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+
+def attend(q, k, v, *, causal: bool = True, window: int = 0,
+           cap: float = 0.0, bq: int = 128, bk: int = 128,
+           use_kernel: bool = True):
+    """q: (B, S, H, Dh); k, v: (B, S, KV, Dh) -> (B, S, H, Dh)."""
+    B, Sq, H, Dh = q.shape
+    Sk = k.shape[1]
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2)
+    vt = v.transpose(1, 2)
+    bq_ = min(bq, Sq)
+    bk_ = min(bk, Sk)
+    pq = (-Sq) % bq_
+    pk = (-Sk) % bk_
+    kv_len = Sk if pk else None
+    if pq:
+        qt = F.pad(qt, (0, 0, 0, pq))
+    if pk:
+        kt = F.pad(kt, (0, 0, 0, pk))
+        vt = F.pad(vt, (0, 0, 0, pk))
+    if use_kernel_for(q, use_kernel):
+        ot = kernel.flash_attention(
+            qt.contiguous(), kt.contiguous(), vt.contiguous(), causal=causal,
+            window=window, cap=cap, kv_len=kv_len)
+    else:
+        ot = flash_attention_ref(qt, kt, vt, causal=causal, window=window,
+                                 cap=cap, kv_len=kv_len)
+    return ot[:, :, :Sq].transpose(1, 2)
