@@ -5,19 +5,28 @@
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. the card: nvidia-smi name and power limit, torch and CUDA versions;
-2. the build: every hand-written kernel of the serving path, by nvcc;
+2. the build: every hand-written kernel of the serving paths
+   (flash_attention, lru_scan, wkv6), one nvcc per source, all started
+   together, with each compiler report (registers, spills);
 3. each kernel against its plain PyTorch version on the card, at the
-   reference test cases and at the shape the main path gives it;
-4. the main path: ``repro_torch.launch.serve.main`` for StarCoder2-3B at
-   full width (30 layers, d_model 3072, random bf16 weights from a seed),
-   4 prompts of 500 tokens, 32 generated. The kernel launch counts are
-   zeroed just before and read just after; the prefill logits are held
-   against the same weights run with plain attention, a sampled run is
-   repeated to show its tokens do not change, and a reduced fp32 config
-   is held against the CPU run of the same weights;
+   reference test cases, at shapes off the TPU kernels' block multiples
+   and at the shapes the main paths give it;
+4. the main paths, each through ``repro_torch.launch.serve.main`` at full
+   width and full depth with random weights from seed 0, 4 prompts of 500
+   tokens, 32 generated: StarCoder2-3B (flash attention in 30 layers),
+   RecurrentGemma-9B (lru_scan in 26 RG-LRU layers, flash attention in 12
+   local-attention layers) and RWKV-6-7B (wkv6 in 32 layers, prefill and
+   every decode step). The kernel launch counts are zeroed just before
+   each run and read just after; then per prefill and per decode step.
+   The prefill logits are held against the same weights run with the
+   plain versions (for RWKV-6 beside the distance a reordering of the
+   plain wkv6's sum alone makes), a sampled run is repeated to show its
+   tokens do not change, the full-width model in fp32 is held against
+   its plain-version run, and a reduced fp32 config is held against the
+   CPU run of the same weights. Each model is freed before the next;
 5. times, beside the card's name and power limit: prefill, decode, and
    each kernel's time against its bound, its plain version and the
-   library call that computes the same function.
+   library call that computes the same function, where one exists.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Needs CUDA; imports nothing of jax.
@@ -29,6 +38,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -44,7 +54,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # (B, S, H, KV, Dh, causal, window, cap, bq, bk, dtype): the reference's
 # FLASH_CASES (tests/test_kernels.py), padded and Dh=256 cases, and the
-# main path's prefill shape (S=500 pads to 512 with kv_len=500).
+# main paths' prefill shapes (S=500 pads to 512 with kv_len=500).
 FLASH_CASES = [
     (1, 64, 2, 2, 32, True, 0, 0.0, 32, 32, torch.float32),
     (2, 128, 4, 2, 64, True, 0, 0.0, 64, 64, torch.float32),
@@ -58,10 +68,63 @@ FLASH_CASES = [
     (2, 192, 4, 2, 256, False, 0, 0.0, 128, 128, torch.float32),
 ]
 MAIN = (4, 500, 24, 2, 128, True, 0, 0.0, 128, 128, torch.bfloat16)
-GEN = 32
-SERVE_ARGV = ["--arch", "starcoder2-3b", "--batch", str(MAIN[0]),
-              "--prompt-len", str(MAIN[1]), "--gen", str(GEN)]
+# RecurrentGemma-9B's local attention: MQA, Dh=256, window 2048
+RG_ATTN = (4, 500, 16, 1, 256, True, 2048, 0.0, 128, 128, torch.bfloat16)
+
+# (B, S, D, dtype): the reference's LRU_CASES (chunk and bd do not apply),
+# shapes off the TPU kernel's block multiples, and the RG-LRU prefill shape
+LRU_CASES = [
+    (1, 32, 16, torch.float32),
+    (2, 64, 32, torch.float32),
+    (2, 128, 64, torch.float32),
+    (1, 64, 48, torch.float32),
+    (2, 64, 32, torch.bfloat16),
+    (2, 50, 48, torch.float32),
+    (3, 300, 600, torch.bfloat16),
+]
+LRU_MAIN = (4, 500, 4096, torch.float32)
+
+# (B, T, H, N, dtype): the reference's WKV_CASES, T off the chunk, T=1,
+# and the RWKV-6 prefill and decode shapes (w always fp32)
+WKV_CASES = [
+    (1, 16, 1, 8, torch.float32),
+    (2, 32, 2, 8, torch.float32),
+    (2, 64, 4, 16, torch.float32),
+    (1, 32, 2, 16, torch.bfloat16),
+    (2, 50, 2, 32, torch.float32),
+    (2, 1, 4, 64, torch.float32),
+]
+WKV_MAIN = (4, 500, 64, 64, torch.bfloat16)
+WKV_DECODE = (4, 1, 64, 64, torch.bfloat16)
+# the prefill shape in fp32, held at 1e-5 of the output's largest value: an
+# error that bf16's 5e-2 hides would show here. Elementwise 1e-5 does not
+# apply: 500 steps of 64-term sums of state entries far above 1 differ by
+# more than 1e-5 in fp32 between two summation orders
+WKV_MAIN32 = (4, 500, 64, 64, torch.float32)
+WKV_REL_TOL = 1e-5
+
+BATCH, PROMPT, GEN = 4, 500, 32
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}  # test_kernels.py
+
+SOURCES = {
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
+                        "flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:88"),
+    "lru_scan": ("src/repro_torch/kernels/lru_scan/csrc/lru_scan.cu",
+                 "src/repro/kernels/lru_scan/kernel.py:42"),
+    "wkv6": ("src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+             "src/repro/kernels/wkv6/kernel.py:52"),
+}
+
+# arch -> launches expected (in serve.main: prefill + GEN-1 decode steps,
+# per prefill, per decode step); kernels not named must launch 0 times
+SERVE_PATHS = {
+    "starcoder2-3b": ({"flash_attention": 30}, {"flash_attention": 30}, {}),
+    "recurrentgemma-9b": ({"flash_attention": 12, "lru_scan": 26},
+                          {"flash_attention": 12, "lru_scan": 26}, {}),
+    "rwkv6-7b": ({"wkv6": 32 + (GEN - 1) * 32}, {"wkv6": 32}, {"wkv6": 32}),
+}
 
 
 def check(cond: bool, what: str) -> None:
@@ -75,17 +138,53 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def kernel_modules() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.lru_scan import kernel as lru_kernel
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
+    return {"flash_attention": fa_kernel, "lru_scan": lru_kernel,
+            "wkv6": wkv_kernel}
+
+
+def zero_launches() -> None:
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call. A ~5 ms spin kernel is queued first, so the
+    host enqueues the timed calls while the card is busy: a kernel shorter
+    than its wrapper's Python overhead is timed on the device, not at the
+    host's launch rate."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: int, n_ops: int, dtype) -> dict:
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": n_ops}
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def profile_window(label: str, fn) -> None:
@@ -116,12 +215,36 @@ def profile_window(label: str, fn) -> None:
                                   for n, t in top))
 
 
+# ------------------------------------------------------------ inputs
 def flash_inputs(case, gen):
     B, S, H, KV, Dh, *_, dt = case
     return [torch.randn(shape, generator=gen, device="cuda").to(dt)
             for shape in ((B, S, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh))]
 
 
+def lru_inputs(case, gen):
+    """a = sigmoid(N(0,1)), b = N(0,1) in the case's dtype; h0 fp32."""
+    B, S, D, dt = case
+    a = torch.sigmoid(torch.randn((B, S, D), generator=gen, device="cuda"))
+    b = torch.randn((B, S, D), generator=gen, device="cuda")
+    h0 = torch.randn((B, D), generator=gen, device="cuda")
+    return a.to(dt), b.to(dt), h0
+
+
+def wkv_inputs(case, gen):
+    """r, k, v = N(0,1) in the case's dtype; w in (0.49, 0.99), u and s0
+    0.1 N(0,1), fp32 (the reference's test distribution)."""
+    B, T, H, N, dt = case
+    r, k, v = (torch.randn((B, T, H, N), generator=gen, device="cuda").to(dt)
+               for _ in range(3))
+    w = 0.5 * torch.sigmoid(torch.randn((B, T, H, N), generator=gen,
+                                        device="cuda")) + 0.49
+    u = 0.1 * torch.randn((H, N), generator=gen, device="cuda")
+    s0 = 0.1 * torch.randn((B, H, N, N), generator=gen, device="cuda")
+    return r, k, v, w, u, s0
+
+
+# ------------------------------------------------------------ phases
 def phase_card() -> str:
     check(torch.cuda.is_available(), "CUDA is not available")
     name = torch.cuda.get_device_name(0)
@@ -134,24 +257,38 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    """One nvcc per source, all started together."""
+    def build(item):
+        name, mod = item
+        t0 = time.perf_counter()
+        lib = mod.library()
+        return name, time.perf_counter() - t0, Path(lib._name)
+
     t0 = time.perf_counter()
-    lib = fa_kernel.library()
-    print(f"build: flash_attention.cu by nvcc for sm_90a in "
-          f"{time.perf_counter() - t0:.1f}s -> {Path(lib._name).name}")
-    log = Path(lib._name).with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip())
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(build, kernel_modules().items()))
+    print(f"build: {len(built)} libraries in "
+          f"{time.perf_counter() - t0:.1f}s (in parallel)")
+    for name, secs, path in built:
+        print(f"build: {Path(SOURCES[name][0]).name} by nvcc for sm_90a in "
+              f"{secs:.1f}s -> {path.name}")
+        log = path.with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip())
 
 
-def phase_kernels() -> float:
-    """Every case: kernel vs plain version on the card. Returns the error
-    at the main path's shape."""
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+def _report(name: str, cases: list) -> None:
+    mods = kernel_modules()
+    print(f"{name} vs plain version on the card: "
+          + json.dumps({"name": name, "cases": cases,
+                        "max_abs_err": max(c["max_abs_err"] for c in cases),
+                        "launches": mods[name].launches}))
+
+
+def _flash_cases(gen) -> float:
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    cases, main_err = [], None
-    for case in FLASH_CASES + [MAIN]:
+    cases, main_err = [], 0.0
+    for case in FLASH_CASES + [MAIN, RG_ATTN]:
         B, S, H, KV, Dh, causal, window, cap, bq, bk, dt = case
         q, k, v = flash_inputs(case, gen)
         kw = dict(causal=causal, window=window, cap=cap, bq=bq, bk=bk)
@@ -165,48 +302,139 @@ def phase_kernels() -> float:
                       "window": window, "cap": cap, "dtype": str(dt),
                       "max_abs_err": err, "tol": TOL[dt], "ok": ok})
         check(ok, f"flash_attention {cases[-1]}")
-        if case is MAIN:
-            main_err = err
-    print("flash_attention vs plain version on the card: "
-          + json.dumps({"name": "flash_attention", "cases": cases,
-                        "max_abs_err": max(c["max_abs_err"] for c in cases),
-                        "launches": fa_kernel.launches}))
+        if case in (MAIN, RG_ATTN):
+            main_err = max(main_err, err)
+    _report("flash_attention", cases)
     return main_err
 
 
-def phase_main_path() -> dict:
-    """The serving path at full width; returns its launch counts and
+def _scan_case(name, shape, dt, out, ref, with_init) -> dict:
+    """Both outputs of a scan kernel against its plain version: allclose
+    at SCAN_TOL (atol and rtol, as tests/test_kernels.py), finite, same
+    shape and dtype."""
+    tol = SCAN_TOL[dt]
+    err, ok = 0.0, True
+    for o, r in zip(out, ref):
+        err = max(err, (o.float() - r.float()).abs().max().item())
+        ok = ok and (o.shape == r.shape and o.dtype == r.dtype
+                     and bool(torch.isfinite(o).all())
+                     and torch.allclose(o.float(), r.float(), atol=tol,
+                                        rtol=tol))
+    case = {"shape": list(shape), "dtype": str(dt), "init": with_init,
+            "max_abs_err": err, "tol": tol, "ok": ok}
+    check(ok, f"{name} {case}")
+    return case
+
+
+def _lru_cases(gen) -> float:
+    from repro_torch.kernels.lru_scan import ops as lru_ops
+    cases = []
+    for case in LRU_CASES + [LRU_MAIN]:
+        a, b, h0 = lru_inputs(case, gen)
+        for init in (h0, None):
+            out = lru_ops.scan(a, b, init, use_kernel=True)
+            ref = lru_ops.scan(a, b, init, use_kernel=False)
+            torch.cuda.synchronize()
+            cases.append(_scan_case("lru_scan", case[:3], case[3], out, ref,
+                                    init is not None))
+            check(out[0].dtype == a.dtype and out[1].dtype == torch.float32
+                  and torch.equal(out[1], out[0][:, -1].float()),
+                  f"lru_scan h_last is y[:, -1] widened, {case}")
+    _report("lru_scan", cases)
+    return max(c["max_abs_err"] for c in cases[-2:])
+
+
+def _wkv_cases(gen) -> float:
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    cases = []
+    for case in WKV_CASES + [WKV_MAIN, WKV_DECODE]:
+        r, k, v, w, u, s0 = wkv_inputs(case, gen)
+        for init in (s0, None):
+            out = wkv_ops.mix(r, k, v, w, u, init, use_kernel=True)
+            ref = wkv_ops.mix(r, k, v, w, u, init, use_kernel=False)
+            torch.cuda.synchronize()
+            cases.append(_scan_case("wkv6", case[:4], case[4], out, ref,
+                                    init is not None))
+    main_err = max(c["max_abs_err"] for c in cases[-4:])
+    r, k, v, w, u, s0 = wkv_inputs(WKV_MAIN32, gen)
+    out = wkv_ops.mix(r, k, v, w, u, s0, use_kernel=True)
+    ref = wkv_ops.mix(r, k, v, w, u, s0, use_kernel=False)
+    torch.cuda.synchronize()
+    err = max((o - x).abs().max().item() for o, x in zip(out, ref))
+    rel = max(((o - x).abs().max() / x.abs().max()).item()
+              for o, x in zip(out, ref))
+    cases.append({"shape": list(WKV_MAIN32[:4]), "dtype": "torch.float32",
+                  "init": True, "max_abs_err": err, "rel_max_err": rel,
+                  "rel_tol": WKV_REL_TOL,
+                  "ok": rel <= WKV_REL_TOL
+                  and all(bool(torch.isfinite(o).all()) for o in out)})
+    check(cases[-1]["ok"], f"wkv6 {cases[-1]}")
+    _report("wkv6", cases)
+    return main_err
+
+
+def phase_kernels() -> dict:
+    """Every case: kernel vs plain version on the card. Returns each
+    kernel's largest error at the main paths' shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return {"flash_attention": _flash_cases(gen), "lru_scan": _lru_cases(gen),
+            "wkv6": _wkv_cases(gen)}
+
+
+def _expect(counts: dict, expected: dict, what: str) -> None:
+    want = {name: expected.get(name, 0) for name in SOURCES}
+    check(counts == want, f"{what}: launches {counts}, expected {want}")
+
+
+def phase_serve(arch: str) -> dict:
+    """One main path at full width; returns its launch counts and
     steady-state times."""
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.launch import serve
     from repro_torch.models import backbone
 
-    fa_kernel.launches = 0
-    res = serve.main(SERVE_ARGV)
-    launches = {"flash_attention": fa_kernel.launches}
+    main_expect, prefill_expect, step_expect = SERVE_PATHS[arch]
+    argv = ["--arch", arch, "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN)]
+    zero_launches()
+    res = serve.main(argv)
+    launches = read_launches()
     cfg = res.cfg
     B, S = res.prompts.shape
     print(f"main path: {cfg.name} n_layers={cfg.n_layers} "
-          f"d_model={cfg.d_model} dtype={cfg.dtype}; launches {launches}")
-    check(launches["flash_attention"] == cfg.n_layers == 30,
-          f"expected 30 flash_attention launches in the prefill: {launches}")
+          f"d_model={cfg.d_model} dtype={cfg.dtype}; launches in prefill + "
+          f"{GEN - 1} decode steps {launches}")
+    _expect(launches, main_expect, f"{arch} serve.main")
     check(res.prefill_logits.shape == (B, cfg.vocab_size)
           and bool(torch.isfinite(res.prefill_logits).all()),
           "prefill logits finite and (B, vocab)")
     check(res.tokens.shape == (B, GEN) and int(res.tokens.min()) >= 0
           and int(res.tokens.max()) < cfg.vocab_size, "generated tokens")
 
+    with torch.inference_mode():
+        zero_launches()
+        _, _, cache = backbone.prefill(res.model, cfg, res.prompts, S + GEN)
+        per_prefill = read_launches()
+        zero_launches()
+        backbone.decode_step(res.model, cfg, res.tokens[:, :1], cache, S)
+        per_step = read_launches()
+    print(f"{arch}: launches per prefill {per_prefill}, per decode step "
+          f"{per_step}")
+    _expect(per_prefill, prefill_expect, f"{arch} prefill")
+    _expect(per_step, step_expect, f"{arch} decode step")
+
     plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False)
+    zero_launches()
     with torch.inference_mode():
         plain_logits, _, _ = backbone.prefill(res.model, plain_cfg,
                                               res.prompts, S + GEN)
-    check(fa_kernel.launches == launches["flash_attention"],
-          "the plain-attention run launched the kernel")
+    _expect(read_launches(), {}, f"{arch} plain-version prefill")
     rel = ((res.prefill_logits - plain_logits).abs().max()
            / plain_logits.abs().max()).item()
-    print(f"prefill logits, kernel vs plain attention (same weights): "
-          f"relative max error {rel:.3e} (bound 5e-2)")
-    check(rel < 5e-2, "prefill logits vs plain attention")
+    print(f"{arch} prefill logits, kernels vs plain versions (same weights):"
+          f" relative max error {rel:.3e} (bound 5e-2)")
+    check(rel < 5e-2, f"{arch} prefill logits vs plain versions")
+    if arch == "rwkv6-7b":
+        wkv_order_witness(res.model, plain_cfg, res.prompts, plain_logits)
 
     prefill_ms, tok_s = [], []
     for _ in range(3):
@@ -214,11 +442,11 @@ def phase_main_path() -> dict:
         prefill_ms.append(p_s * 1e3)
         tok_s.append(B * (GEN - 1) / d_s)
     with torch.inference_mode():
-        profile_window("prefill", lambda: backbone.prefill(
+        profile_window(f"{arch} prefill", lambda: backbone.prefill(
             res.model, cfg, res.prompts, S + GEN))
         _, _, cache = backbone.prefill(res.model, cfg, res.prompts, S + GEN)
         tok = res.tokens[:, :1]
-        profile_window("decode, 8 steps", lambda: [
+        profile_window(f"{arch} decode, 8 steps", lambda: [
             backbone.decode_step(res.model, cfg, tok, cache, S + i)
             for i in range(8)])
     del res, plain_logits, cache
@@ -226,12 +454,28 @@ def phase_main_path() -> dict:
 
     tokens = []
     for _ in range(2):
-        run = serve.main(SERVE_ARGV + ["--temperature", "1.0", "--seed", "3"])
+        run = serve.main(argv + ["--temperature", "1.0", "--seed", "3"])
         tokens.append(run.tokens.clone())
         del run
         torch.cuda.empty_cache()
-    check(torch.equal(*tokens), "sampled rerun gave other tokens")
-    print("sampled rerun (temperature 1.0, seed 3): identical tokens")
+    check(torch.equal(*tokens), f"{arch} sampled rerun gave other tokens")
+    print(f"{arch} sampled rerun (temperature 1.0, seed 3): identical tokens")
+
+    fp32_cfg = dataclasses.replace(cfg, dtype="float32")
+    big, prompts = serve.build(fp32_cfg, BATCH, PROMPT, torch.device("cuda"))
+    with torch.inference_mode():
+        k_logits, _, _ = backbone.prefill(big, fp32_cfg, prompts, S + GEN)
+        p_logits, _, _ = backbone.prefill(
+            big, dataclasses.replace(fp32_cfg, use_pallas_attention=False),
+            prompts, S + GEN)
+    rel32 = ((k_logits - p_logits).abs().max()
+             / p_logits.abs().max()).item()
+    print(f"{arch} full width in fp32, kernels vs plain versions (same "
+          f"weights): prefill logits relative max error {rel32:.3e} "
+          "(bound 1e-3)")
+    check(rel32 < 1e-3, f"{arch} fp32 prefill logits vs plain versions")
+    del big, k_logits, p_logits
+    torch.cuda.empty_cache()
 
     small_cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
     small, prompts = serve.build(small_cfg, 2, 150, torch.device("cuda"))
@@ -240,55 +484,158 @@ def phase_main_path() -> dict:
                                               prompts.cpu(), 6)
     err = (g_logits.cpu() - c_logits).abs().max().item()
     same = torch.equal(g_tokens.cpu(), c_tokens)
-    print(f"reduced fp32 (2 layers, prompt 150): card vs CPU prefill logits "
-          f"max abs err {err:.3e} (tol 1e-4); greedy tokens equal {same}")
-    check(err < 1e-4 and same, "reduced model: card vs CPU")
+    print(f"{arch} reduced fp32 ({small_cfg.n_layers} layers, prompt 150): "
+          f"card vs CPU prefill logits max abs err {err:.3e} (tol 1e-4); "
+          f"greedy tokens equal {same}")
+    check(err < 1e-4 and same, f"{arch} reduced model: card vs CPU")
+    del small
+    torch.cuda.empty_cache()
     return {"launches": launches, "prefill_ms": prefill_ms, "tok_s": tok_s}
 
 
-def flash_times() -> dict:
-    """The kernel at the main path's shape (after the wrapper's padding)
+def wkv6_reordered(r, k, v, w, u, s0=None):
+    """The plain wkv6 with o summed in another order: r_t S_{t-1}, then
+    the bonus as v_j * sum_i r_i u_i k_i. The same function as
+    ``wkv6_ref``; only fp32 rounding before o's cast to bf16 differs."""
+    B, T, H, N = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    s = (torch.zeros((B, H, N, N), device=r.device) if s0 is None
+         else s0.float())
+    o = torch.empty((B, T, H, N), device=r.device)
+    for t in range(T):
+        bonus = (rf[:, t] * u * kf[:, t]).sum(-1, keepdim=True)
+        o[:, t] = torch.einsum("bhn,bhnm->bhm", rf[:, t], s) \
+            + bonus * vf[:, t]
+        s = wf[:, t, :, :, None] * s + kf[:, t, :, :, None] \
+            * vf[:, t, :, None, :]
+    return o.to(r.dtype), s
+
+
+def wkv_order_witness(model, plain_cfg, prompts, plain_logits) -> None:
+    """How far a change of wkv6's summation order alone moves RWKV-6's
+    bf16 prefill logits: the plain run against the plain run with
+    ``wkv6_reordered``. The kernel's own distance from the plain run is
+    read against this."""
+    from unittest import mock
+
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.models import backbone
+
+    def mix(r, k, v, w, u, s0=None, *, use_kernel=True):
+        return wkv6_reordered(r, k, v, w, u, s0)
+
+    with mock.patch.object(wkv_ops, "mix", mix), torch.inference_mode():
+        re_logits, _, _ = backbone.prefill(model, plain_cfg, prompts,
+                                           prompts.shape[1] + GEN)
+    rel = ((re_logits - plain_logits).abs().max()
+           / plain_logits.abs().max()).item()
+    print(f"rwkv6-7b prefill logits, plain vs plain with wkv6's sum "
+          f"reordered (same weights): relative max error {rel:.3e}")
+
+
+# ------------------------------------------------------------ kernel times
+def flash_times(case) -> dict:
+    """The kernel at a main path's shape (after the wrapper's padding)
     against its bound, the plain version and SDPA."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    B, Sq, H, KV, Dh, causal, *_, dt = MAIN
-    q, k, v = flash_inputs(MAIN, torch.Generator(device="cuda").manual_seed(1))
+    B, Sq, H, KV, Dh, causal, window, *_, dt = case
+    q, k, v = flash_inputs(case, torch.Generator(device="cuda").manual_seed(1))
     Sp = -(-Sq // 128) * 128
     qt, kt, vt = (F.pad(x.transpose(1, 2), (0, 0, 0, Sp - Sq)).contiguous()
                   for x in (q, k, v))
-    kw = dict(causal=causal, window=0, cap=0.0, kv_len=Sq)
+    kw = dict(causal=causal, window=window, cap=0.0, kv_len=Sq)
     ms = cuda_ms(lambda: fa_kernel.flash_attention(qt, kt, vt, **kw))
     plain_ms = cuda_ms(lambda: flash_attention_ref(qt, kt, vt, **kw))
-    try:
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                       enable_gqa=True)
+    # SDPA computes the same function only where the window masks nothing
+    library_ms = None
+    if not window or window >= Sp:
+        try:
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
 
-        def lib_call():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-    except TypeError:  # torch without enable_gqa: expand kv heads first
-        kx, vx = (x.repeat_interleave(H // KV, dim=1) for x in (kt, vt))
+            def lib_call():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        except TypeError:  # torch without enable_gqa: expand kv heads first
+            kx, vx = (x.repeat_interleave(H // KV, dim=1) for x in (kt, vt))
 
-        def lib_call():
-            return F.scaled_dot_product_attention(qt, kx, vx, is_causal=True)
-    library_ms = cuda_ms(lib_call)
+            def lib_call():
+                return F.scaled_dot_product_attention(qt, kx, vx,
+                                                      is_causal=True)
+        library_ms = cuda_ms(lib_call)
 
-    # the work this call's masks leave: (query, key) pairs causal and < kv_len
+    # the work this call's masks leave: (query, key) pairs causal, inside
+    # the window and < kv_len
     qpos = torch.arange(Sp, device="cuda")[:, None]
     kpos = torch.arange(Sp, device="cuda")[None, :]
-    pairs = int(((kpos <= qpos) & (kpos < Sq)).sum())
-    n_bytes = sum(x.numel() * x.element_size() for x in (qt, kt, vt, qt))
-    n_ops = 4 * B * H * pairs * Dh
-    t_bytes = n_bytes / HBM_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_FLOPS[dt] * 1e3
+    keep = (kpos <= qpos) & (kpos < Sq)
+    if window:
+        keep &= kpos > qpos - window
+    pairs = int(keep.sum())
+    # bytes: q, k, v read and o written once, kv_len rows (not the padding)
+    b = bound(nbytes(q, k, v, q), 4 * B * H * pairs * Dh, dt)
     print(f"  flash_attention (B={B} H={H} KV={KV} S={Sp} kv_len={Sq} "
-          f"Dh={Dh} {dt} causal): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, SDPA {library_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
-          f"({n_bytes} bytes -> {t_bytes:.4f} ms, {n_ops} FLOP -> "
-          f"{t_ops:.4f} ms)")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+          f"Dh={Dh} window={window} {dt} causal): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA "
+          f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}; "
+          f"bound {b['bound_ms']:.4f} ms ({b['bytes']} bytes, {b['ops']} "
+          "FLOP)")
+    return {"shape": [B, Sq, H, KV, Dh], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **b}
+
+
+def lru_times() -> dict:
+    from repro_torch.kernels.lru_scan import kernel as lru_kernel
+    from repro_torch.kernels.lru_scan.ref import lru_scan_ref
+    B, S, D, dt = LRU_MAIN
+    a, b, h0 = lru_inputs(LRU_MAIN,
+                          torch.Generator(device="cuda").manual_seed(1))
+    ms = cuda_ms(lambda: lru_kernel.lru_scan(a, b, h0))
+    plain_ms = cuda_ms(lambda: lru_scan_ref(a, b, h0), iters=5, warmup=1)
+    # a, b in; y out (a's size); h0 in, h_last out; 2 FLOP per element
+    bd = bound(nbytes(a, b, a, h0, h0), 2 * B * S * D, torch.float32)
+    print(f"  lru_scan (B={B} S={S} D={D} {dt}, h0): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library n/a (no single PyTorch call "
+          f"computes a linear recurrence); bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bytes']} bytes, {bd['ops']} FLOP)")
+    return {"shape": [B, S, D], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, **bd}
+
+
+def wkv_times(case) -> dict:
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    B, T, H, N, dt = case
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    r, k, v, w, u, s0 = wkv_inputs(case, gen)
+    ms = cuda_ms(lambda: wkv_kernel.wkv6(r, k, v, w, u, s0))
+    plain_ms = cuda_ms(lambda: wkv6_ref(r, k, v, w, u, s0),
+                       iters=5 if T > 1 else 20, warmup=1 if T > 1 else 3)
+    # r, k, v, w, u, s0 in; o (r's size) and s_T (s0's size) out. Least
+    # FLOP per (b, h, t): r S (2 N^2), the bonus v_j sum_i r_i u_i k_i
+    # (3 N + 2 N) and S <- w S + k^T v (3 N^2): 5 N^2 + 5 N
+    bd = bound(nbytes(r, k, v, w, u, s0, r, s0),
+               B * H * T * (5 * N * N + 5 * N), torch.float32)
+    print(f"  wkv6 (B={B} T={T} H={H} N={N} {dt}, w fp32, s0): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library n/a (no single "
+          f"PyTorch call computes the WKV recurrence); bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bytes']} bytes, {bd['ops']} FLOP)")
+    return {"shape": [B, T, H, N], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, **bd}
+
+
+def _entry(name: str, runs: dict, err: float, times: list) -> dict:
+    by_path = {arch: run["launches"][name] for arch, run in runs.items()
+               if run["launches"][name]}
+    first = times[0]
+    return {"name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": err,
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+            "shape": first["shape"], "other_shapes": times[1:]}
 
 
 def main() -> int:
@@ -298,23 +645,21 @@ def main() -> int:
         return 2
     name = phase_card()
     phase_build()
-    main_err = phase_kernels()
-    run = phase_main_path()
+    errs = phase_kernels()
+    runs = {arch: phase_serve(arch) for arch in SERVE_PATHS}
 
     smi = nvidia_smi()
     print(f"times on {smi}:")
-    print(f"  prefill {MAIN[0]}x{MAIN[1]} ms (3 runs): "
-          + ", ".join(f"{x:.3f}" for x in run["prefill_ms"]))
-    print(f"  decode tok/s, {MAIN[0]} rows x {GEN - 1} steps (3 runs): "
-          + ", ".join(f"{x:.1f}" for x in run["tok_s"]))
-    times = flash_times()
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:88",
-        "launches": run["launches"]["flash_attention"],
-        "max_abs_err": main_err, **times}]}))
+    for arch, run in runs.items():
+        print(f"  {arch} prefill {BATCH}x{PROMPT} ms (3 runs): "
+              + ", ".join(f"{x:.3f}" for x in run["prefill_ms"]))
+        print(f"  {arch} decode tok/s, {BATCH} rows x {GEN - 1} steps "
+              "(3 runs): " + ", ".join(f"{x:.1f}" for x in run["tok_s"]))
+    times = {"flash_attention": [flash_times(MAIN), flash_times(RG_ATTN)],
+             "lru_scan": [lru_times()],
+             "wkv6": [wkv_times(WKV_MAIN), wkv_times(WKV_DECODE)]}
+    print(json.dumps({"kernels": [_entry(k, runs, errs[k], times[k])
+                                  for k in SOURCES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,8 +3,12 @@
 All layout conversion between the two packages lives here. The reference
 stacks the params of each mixer/ffn cycle under ``blocks/l<i>`` with a
 leading block axis (``jax.vmap(init_block)``) and keeps left-over layers
-in ``rem``; the port keeps one ``DecoderLayer`` per layer. Leaves keep
-their dtype: bf16 stays bf16, norm scales and the value head stay fp32.
+in ``rem`` (RecurrentGemma's 38 = 12 * 3 + 2); the port keeps one
+``DecoderLayer`` per layer. Leaves keep their dtype: bf16 stays bf16; norm
+scales, the value head, the RG-LRU gates (``w_a``, ``w_i``, biases,
+``lambda_param``, ``conv_b``) and the RWKV-6 ``mu``, ``w0``,
+``w_lora_*``, ``u`` and ``ln_scale`` stay fp32. Every leaf keeps its
+layout: the port's recurrent mixers use the reference's.
 
 Takes numpy arrays only (``jax.tree.map(np.asarray, params)`` on the
 JAX side), so this module needs neither ``jax`` nor ``ml_dtypes``.

@@ -87,10 +87,12 @@ class ModelConfig:
     # head_dim-sharding all-reduces every score tile; replicating trades
     # bounded redundant FLOPs for zero attention collectives (§Perf).
     attn_replicate_tp: bool = False
-    # Use the hand-written flash-attention kernel for full-sequence
-    # forward passes where no gradient is needed (prefill/serve). The name
-    # is the reference's, kept so configs line up across the bridge. CPU
-    # tensors always take the plain version.
+    # Use the hand-written kernels for forward passes where no gradient is
+    # needed (prefill/serve): flash attention, and the lru_scan and wkv6
+    # recurrences, which the reference runs only as plain code in its
+    # models. False asks for the plain versions on the card; CPU tensors
+    # always take them. The name is the reference's, kept so configs line
+    # up across the bridge.
     use_pallas_attention: bool = False
 
     # Misc.
@@ -167,8 +169,9 @@ def get_config(name: str) -> ModelConfig:
         _load_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; the port registers "
-                       f"{sorted(_REGISTRY)} (the others wait for the LLM "
-                       "slice, ROADMAP queue 1)")
+                       f"{sorted(_REGISTRY)} (the MoE, encoder-decoder and "
+                       "VLM archs wait for later slices, ROADMAP queue 1 "
+                       "item 14)")
     return _REGISTRY[name]
 
 
@@ -180,4 +183,5 @@ def list_configs() -> Tuple[str, ...]:
 
 def _load_all() -> None:
     # import side-effect registers every config module in this package
-    from repro_torch.configs import starcoder2_3b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        recurrentgemma_9b, rwkv6_7b, starcoder2_3b)

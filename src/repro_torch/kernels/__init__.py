@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
+_LOCKS: dict = {}
 _LOCK = threading.Lock()
 
 
@@ -79,8 +80,11 @@ def build(name: str, source: Path) -> Path:
 
 
 def load(name: str, source: Path) -> ctypes.CDLL:
-    """Build (if needed) and ``dlopen`` a kernel library, once per process."""
+    """Build (if needed) and ``dlopen`` a kernel library, once per process.
+    One lock per library, so threads can build different ones at once."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(str(build(name, source)))
         return _LIBS[name]

@@ -1,0 +1,92 @@
+"""ctypes binding of the hand-written WKV6 kernel.
+
+Counterpart of ``repro/kernels/wkv6/kernel.py::wkv6`` (the Pallas TPU
+kernel). The CUDA C++ source is ``csrc/wkv6.cu``, built by ``nvcc`` for
+``sm_90a`` at first use (``repro_torch.kernels.load``). This wrapper
+checks what the kernel takes, allocates the outputs, launches on
+PyTorch's current stream and raises if the launch is refused. It takes
+CUDA tensors only: the CPU goes through ``ref.py`` (see ``ops.mix``).
+
+``launches`` counts the kernel's launches in this process; callers that
+want to show a path went through the kernel set it to 0 and read it.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch import kernels
+
+SOURCE = Path(__file__).parent / "csrc" / "wkv6.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_SIZES = (8, 16, 32, 64)
+
+launches = 0
+
+
+def library() -> ctypes.CDLL:
+    lib = kernels.load("wkv6", SOURCE)
+    fn = lib.repro_wkv6_fwd
+    # (r, k, v, w, u, s0 or NULL, o, s_T, B, T, H, N, dtype, stream)
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def wkv6(r, k, v, w, u, s0=None):
+    """r, k, v: (B, T, H, N) contiguous CUDA tensors of one dtype (fp32 or
+    bf16); w: (B, T, H, N), u: (H, N), s0: (B, H, N, N) or None, taken in
+    fp32. N in ``HEAD_SIZES``. Returns (o (B, T, H, N) in r.dtype, s_T
+    (B, H, N, N) fp32)."""
+    global launches
+    w, u = w.to(torch.float32).contiguous(), u.to(torch.float32).contiguous()
+    if s0 is not None:
+        s0 = s0.to(torch.float32).contiguous()
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+                    ("s0", s0)):
+        if t is None:
+            continue
+        if t.device.type != "cuda" or t.device != r.device:
+            raise ValueError(f"wkv6 kernel: {name} is on {t.device}; the "
+                             "kernel takes CUDA tensors on one device (CPU "
+                             "tensors go through ops.mix)")
+        if not t.is_contiguous():
+            raise ValueError(f"wkv6 kernel: {name} must be contiguous")
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(f"wkv6 kernel: r, k, v must share one dtype of "
+                         f"float32, bfloat16; got {r.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if r.dim() != 4 or 0 in r.shape:
+        raise ValueError(f"wkv6 kernel: r {tuple(r.shape)} is not a "
+                         "non-empty (B, T, H, N)")
+    B, T, H, N = r.shape
+    if (k.shape != r.shape or v.shape != r.shape or w.shape != r.shape
+            or u.shape != (H, N)
+            or (s0 is not None and s0.shape != (B, H, N, N))):
+        raise ValueError(f"wkv6 kernel: shapes r {tuple(r.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} w "
+                         f"{tuple(w.shape)} u {tuple(u.shape)} s0 "
+                         f"{None if s0 is None else tuple(s0.shape)} rejected")
+    if N not in HEAD_SIZES:
+        raise ValueError(f"wkv6 kernel: head size {N} not in {HEAD_SIZES}")
+    lib = library()
+    o = torch.empty_like(r)
+    s_T = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = lib.repro_wkv6_fwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if s0 is None else s0.data_ptr(),
+            o.data_ptr(), s_T.data_ptr(), B, T, H, N, _DTYPES[r.dtype],
+            stream)
+    if err:
+        raise RuntimeError("wkv6 kernel launch failed: "
+                           f"{lib.repro_cuda_error_string(err).decode()} "
+                           f"(cudaError_t {err})")
+    launches += 1
+    return o, s_T

@@ -7,11 +7,15 @@ same flags and schedule plus ``--device`` (default ``cuda``)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
         --batch 4 --prompt-len 500 --gen 32
 
-Prefill runs full-sequence attention through the hand-written flash
-kernel (``use_pallas_attention`` is turned on, as the reference's config
-says the field exists for prefill and serving); sampling at step i keys
-on (seed, row, i), the same determinism contract as the RL actors.
-Weights are random, drawn on the device from a seeded generator.
+``--arch`` is one of the port's registered configs: ``starcoder2-3b``,
+``recurrentgemma-9b``, ``rwkv6-7b``. Prefill runs full-sequence attention
+through the hand-written flash kernel and the RG-LRU and RWKV-6
+recurrences through the lru_scan and wkv6 kernels (wkv6 also runs each
+decode step): ``use_pallas_attention``, the port's one kernel switch, is
+turned on, as the reference's config says the field exists for prefill
+and serving. Sampling at step i keys on (seed, row, i), the same
+determinism contract as the RL actors. Weights are random, drawn on the
+device from a seeded generator.
 
 ``main(argv)`` can be called in-process and returns a ``ServeResult``.
 The ``--spec`` policy-serving mode waits for the RL slices.

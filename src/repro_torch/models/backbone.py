@@ -1,13 +1,14 @@
-"""Dense decoder backbone: embed, a stack of decoder layers, final norm,
-LM and value heads.
+"""Decoder backbone: embed, a stack of decoder layers, final norm, LM and
+value heads.
 
-Counterpart of ``repro/models/backbone.py`` for the dense decoder (ATTN_FULL
-and ATTN_LOCAL mixers with the dense FFN). The reference stacks each
-mixer/ffn cycle's params under ``blocks/l<i>`` and scans over them; here
-each layer is one ``DecoderLayer`` in an ``nn.ModuleList`` (``bridge.py``
-unstacks). Modules hold the weights; the config is passed on each call,
-as the reference passes it beside the params, so one set of weights can
-run with and without the attention kernel.
+Counterpart of ``repro/models/backbone.py`` for decoders of ATTN_FULL,
+ATTN_LOCAL, RGLRU and RWKV mixers with the dense FFN. The reference
+stacks each mixer/ffn cycle's params under ``blocks/l<i>``, scans over
+them and runs the left-over layers (``rem``) unrolled; here each layer is
+one ``DecoderLayer`` in an ``nn.ModuleList`` (``bridge.py`` unstacks), so
+the cycle exists only in the bridge. Modules hold the weights; the config
+is passed on each call, as the reference passes it beside the params, so
+one set of weights can run with and without the kernels.
 
 Entry points: ``forward`` (full sequence, optionally filling caches),
 ``prefill`` and ``decode_step``; ``init_params`` builds the model on the
@@ -21,18 +22,19 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import (ATTN_FULL, ATTN_LOCAL, FFN_DENSE,
-                                      ModelConfig)
-from repro_torch.models import attention, layers
+                                      RGLRU, RWKV, ModelConfig)
+from repro_torch.models import attention, layers, rglru, rwkv6
 
-_NOT_PORTED = ("not ported yet: the port's backbone is the dense decoder "
-               "(ATTN_FULL/ATTN_LOCAL mixers, dense FFN); MoE, RG-LRU, "
-               "RWKV, encoder-decoder and VLM inputs wait for the LLM "
-               "slice, ROADMAP queue 1 item 14")
+_NOT_PORTED = ("not ported yet: the port's backbone is the decoder of "
+               "ATTN_FULL/ATTN_LOCAL/RGLRU/RWKV mixers with the dense FFN; "
+               "MoE, encoder-decoder and VLM inputs wait for later slices, "
+               "ROADMAP queue 1 item 14")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     for mixer, ffn in cfg.layer_kinds:
-        if mixer not in (ATTN_FULL, ATTN_LOCAL) or ffn != FFN_DENSE:
+        if (mixer not in (ATTN_FULL, ATTN_LOCAL, RGLRU, RWKV)
+                or ffn != FFN_DENSE):
             raise NotImplementedError(f"{cfg.name}: ({mixer}, {ffn}) "
                                       + _NOT_PORTED)
     if cfg.is_encoder_decoder or cfg.vision_prefix or cfg.mrope:
@@ -44,16 +46,26 @@ class DecoderLayer(nn.Module):
         super().__init__()
         self.mixer_kind = mixer_kind
         self.norm1 = layers.Norm(cfg, cfg.d_model, device=device)
-        self.mixer = attention.Attention(cfg, device=device)
+        if mixer_kind == RGLRU:
+            self.mixer = rglru.RGLRU(cfg, device=device)
+        elif mixer_kind == RWKV:
+            self.mixer = rwkv6.RWKV6(cfg, device=device)
+        else:
+            self.mixer = attention.Attention(cfg, device=device)
         self.norm2 = layers.Norm(cfg, cfg.d_model, device=device)
         self.ffn = layers.MLP(cfg, device=device)
 
     def forward(self, x, cfg: ModelConfig, *, positions=None, cache=None,
                 cache_pos=None):
         h = self.norm1(x)
-        out, cache = self.mixer(h, cfg, mixer_kind=self.mixer_kind,
-                                positions=positions, cache=cache,
-                                cache_pos=cache_pos)
+        if self.mixer_kind == RGLRU:
+            out, cache = rglru.apply_rglru_block(self.mixer, h, cfg, cache)
+        elif self.mixer_kind == RWKV:
+            out, cache = rwkv6.apply_rwkv6_block(self.mixer, h, cfg, cache)
+        else:
+            out, cache = self.mixer(h, cfg, mixer_kind=self.mixer_kind,
+                                    positions=positions, cache=cache,
+                                    cache_pos=cache_pos)
         x = x + out
         x = x + self.ffn(self.norm2(x))
         return x, cache
@@ -94,25 +106,41 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return model
 
 
+def _init_layer_cache(cfg: ModelConfig, mixer_kind: str, batch: int,
+                      max_len: int, device=None) -> dict:
+    if mixer_kind == RGLRU:
+        return rglru.init_rglru_cache(cfg, batch, device=device)
+    if mixer_kind == RWKV:
+        return rwkv6.init_rwkv6_cache(cfg, batch, device=device)
+    return attention.init_cache(
+        cfg, batch, max_len, device=device,
+        window=cfg.window if mixer_kind == ATTN_LOCAL else 0)
+
+
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device=None) -> list:
-    """One ``{"k", "v"}`` dict per layer."""
-    return [attention.init_cache(
-        cfg, batch, max_len, device=device,
-        window=cfg.window if mixer == ATTN_LOCAL else 0)
-        for mixer, _ in cfg.layer_kinds]
+    """One dict per layer: ``{"k", "v"}`` for attention, ``{"h", "conv"}``
+    for RG-LRU, ``{"state", "xprev"}`` for RWKV-6."""
+    return [_init_layer_cache(cfg, mixer, batch, max_len, device=device)
+            for mixer, _ in cfg.layer_kinds]
 
 
 def forward(model: Backbone, cfg: ModelConfig, tokens, *, positions=None,
             cache=None, cache_pos=None):
     """Full sequence (cache None), prefill (cache given, S > 1) or decode
-    (cache given, S == 1, cache_pos given). Returns (hidden, cache)."""
+    (cache given, S == 1, cache_pos given). Returns (hidden, cache).
+
+    Each layer's returned cache replaces its entry in the caller's list:
+    attention writes its k/v in place and returns the same dict, the
+    recurrent mixers return new state."""
     x = layers.apply_embed(model.embed, tokens) * math.sqrt(cfg.d_model)
     x = x.to(layers.cdtype(cfg))
     for i, layer in enumerate(model.layers):
-        x, _ = layer(x, cfg, positions=positions,
-                     cache=None if cache is None else cache[i],
-                     cache_pos=cache_pos)
+        x, new = layer(x, cfg, positions=positions,
+                       cache=None if cache is None else cache[i],
+                       cache_pos=cache_pos)
+        if cache is not None:
+            cache[i] = new
     return model.final_norm(x), cache
 
 
@@ -137,7 +165,7 @@ def prefill(model: Backbone, cfg: ModelConfig, tokens, max_len: int):
 
 def decode_step(model: Backbone, cfg: ModelConfig, token, cache, pos: int):
     """token: (B, 1) int; pos: position of ``token``. Returns
-    (logits (B, V), value (B,), cache), the cache updated in place."""
+    (logits (B, V), value (B,), cache), the cache list updated in place."""
     B = token.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.long,
                            device=token.device)
