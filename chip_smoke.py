@@ -7,10 +7,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 1. the card: nvidia-smi name and power limit, torch and CUDA versions;
 2. the build: every hand-written kernel of the serving paths
    (flash_attention, lru_scan, wkv6), one nvcc per source, all started
-   together, with each compiler report (registers, spills);
+   together, with each compiler report (registers, spills) and the count
+   of tensor-core instructions (HGMMA, HMMA) in each library's SASS;
 3. each kernel against its plain PyTorch version on the card, at the
    reference test cases, at shapes off the TPU kernels' block multiples
-   and at the shapes the main paths give it;
+   and at the shapes the main paths give it; flash attention also on
+   strided views in the model's layout (ragged S, window, soft-cap, every
+   bf16 head dim), wkv6 also around its chunk length and with fast decay
+   (w down to 1e-4), and the chunked wkv6 against its plain chunked form;
 4. the main paths, each through ``repro_torch.launch.serve.main`` at full
    width and full depth with random weights from seed 0, 4 prompts of 500
    tokens, 32 generated: StarCoder2-3B (flash attention in 30 layers),
@@ -26,7 +30,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    CPU run of the same weights. Each model is freed before the next;
 5. times, beside the card's name and power limit: prefill, decode, and
    each kernel's time against its bound, its plain version and the
-   library call that computes the same function, where one exists.
+   library call that computes the same function, where one exists. A
+   bound counts the operations at the rate of the units that run them
+   (bf16 or TF32 tensor cores, fp32 CUDA cores); wkv6's CUDA-core reading
+   is printed beside its tensor-core one. Each profile window also prints
+   the port's own kernels' share of the device time.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Needs CUDA; imports nothing of jax.
@@ -35,6 +43,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -47,14 +57,16 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s, and FLOP/s by input type
-# (bf16 on the tensor cores; fp32 on the CUDA cores).
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, and FLOP/s by the units
+# that do the work (bf16 and TF32 on the tensor cores; fp32 on the CUDA
+# cores).
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, "tf32": 495e12, torch.float32: 67e12}
 
 # (B, S, H, KV, Dh, causal, window, cap, bq, bk, dtype): the reference's
-# FLASH_CASES (tests/test_kernels.py), padded and Dh=256 cases, and the
-# main paths' prefill shapes (S=500 pads to 512 with kv_len=500).
+# FLASH_CASES (tests/test_kernels.py), cases off the block sizes and at
+# Dh=256, and the main paths' prefill shapes. The kernel takes S as it is;
+# the plain version pads it to the block (S=500 to 512, kv_len=500).
 FLASH_CASES = [
     (1, 64, 2, 2, 32, True, 0, 0.0, 32, 32, torch.float32),
     (2, 128, 4, 2, 64, True, 0, 0.0, 64, 64, torch.float32),
@@ -66,6 +78,18 @@ FLASH_CASES = [
     (1, 80, 2, 1, 16, True, 32, 0.0, 32, 32, torch.float32),
     (2, 192, 4, 2, 256, True, 0, 0.0, 128, 128, torch.bfloat16),
     (2, 192, 4, 2, 256, False, 0, 0.0, 128, 128, torch.float32),
+]
+# the model's layout as strided views (q, k, v slices of one fused
+# (B, S, H + 2 KV, Dh) tensor), unpadded: ragged S = 500 and 80, window < S,
+# soft-cap, every bf16 head dim the kernel takes, and fp32
+FLASH_STRIDED = [
+    (2, 500, 8, 2, 16, True, 0, 0.0, 128, 128, torch.bfloat16),
+    (2, 80, 4, 1, 64, True, 32, 0.0, 128, 128, torch.bfloat16),
+    (1, 500, 4, 2, 128, True, 200, 30.0, 128, 128, torch.bfloat16),
+    (2, 500, 4, 1, 256, True, 0, 50.0, 128, 128, torch.bfloat16),
+    (2, 80, 4, 4, 32, False, 0, 0.0, 128, 128, torch.bfloat16),
+    (1, 80, 4, 2, 256, True, 48, 20.0, 128, 128, torch.bfloat16),
+    (2, 500, 4, 2, 64, True, 100, 20.0, 128, 128, torch.float32),
 ]
 MAIN = (4, 500, 24, 2, 128, True, 0, 0.0, 128, 128, torch.bfloat16)
 # RecurrentGemma-9B's local attention: MQA, Dh=256, window 2048
@@ -102,8 +126,19 @@ WKV_DECODE = (4, 1, 64, 64, torch.bfloat16)
 # more than 1e-5 in fp32 between two summation orders
 WKV_MAIN32 = (4, 500, 64, 64, torch.float32)
 WKV_REL_TOL = 1e-5
+# around the chunked kernel's chunk C = 32 (C - 1 runs the recurrent
+# kernel, C and C + 1 the chunked one) and at the prefill length, in both
+# dtypes, with the reference's w in (0.49, 0.99) and with fast decay, w
+# uniform in (1e-4, 0.999): there a chunked form that split
+# 2^{P[t] - P[s]} into 2^{P[t]} 2^{-P[s]} would overflow. Held at the
+# WKV_REL_TOL measure in fp32 (the reason above) and at 5e-2 in bf16
+WKV_EDGE = [(2, T, 4, 64, dt) for T in (31, 32, 33, 500)
+            for dt in (torch.float32, torch.bfloat16)]
 
 BATCH, PROMPT, GEN = 4, 500, 32
+# flash kernel vs plain version: tests/test_kernels.py's tolerances. In
+# bf16 the kernel, as the TPU kernel, rounds P to bf16 before P V; the
+# plain version keeps it in fp32
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}  # test_kernels.py
 
@@ -116,6 +151,9 @@ SOURCES = {
     "wkv6": ("src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
              "src/repro/kernels/wkv6/kernel.py:52"),
 }
+
+# kernels whose libraries must hold tensor-core instructions
+TENSOR_CORE_KERNELS = ("flash_attention", "wkv6")
 
 # arch -> launches expected (in serve.main: prefill + GEN-1 decode steps,
 # per prefill, per decode step); kernels not named must launch 0 times
@@ -213,11 +251,23 @@ def profile_window(label: str, fn) -> None:
           f"{busy_us / 1e3:.3f} ms (device busy {100 * busy_us / wall_us:.1f}"
           "%); top: " + "; ".join(f"{n[:60]} {t / 1e3:.3f} ms"
                                   for n, t in top))
+    ours = {k: sum(t for n, t in by_name.items() if k in n)
+            for k in ("flash_fwd", "lru_scan", "wkv6")}
+    print(f"profile {label}: the port's kernels " + ("; ".join(
+        f"{k} {t / 1e3:.3f} ms ({100 * t / busy_us:.1f}%)"
+        for k, t in ours.items() if t) or "none"))
 
 
 # ------------------------------------------------------------ inputs
-def flash_inputs(case, gen):
+def flash_inputs(case, gen, fused: bool = False):
+    """q, k, v ~ N(0, 1) in the model's layout; ``fused``: as strided
+    views into one (B, S, H + 2 KV, Dh) tensor, as a fused projection
+    would give them."""
     B, S, H, KV, Dh, *_, dt = case
+    if fused:
+        qkv = torch.randn((B, S, H + 2 * KV, Dh), generator=gen,
+                          device="cuda").to(dt)
+        return qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
     return [torch.randn(shape, generator=gen, device="cuda").to(dt)
             for shape in ((B, S, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh))]
 
@@ -231,14 +281,19 @@ def lru_inputs(case, gen):
     return a.to(dt), b.to(dt), h0
 
 
-def wkv_inputs(case, gen):
+def wkv_inputs(case, gen, fast_decay: bool = False):
     """r, k, v = N(0,1) in the case's dtype; w in (0.49, 0.99), u and s0
-    0.1 N(0,1), fp32 (the reference's test distribution)."""
+    0.1 N(0,1), fp32 (the reference's test distribution). ``fast_decay``:
+    w uniform in (1e-4, 0.999) instead."""
     B, T, H, N, dt = case
     r, k, v = (torch.randn((B, T, H, N), generator=gen, device="cuda").to(dt)
                for _ in range(3))
-    w = 0.5 * torch.sigmoid(torch.randn((B, T, H, N), generator=gen,
-                                        device="cuda")) + 0.49
+    if fast_decay:
+        w = 1e-4 + (0.999 - 1e-4) * torch.rand((B, T, H, N), generator=gen,
+                                               device="cuda")
+    else:
+        w = 0.5 * torch.sigmoid(torch.randn((B, T, H, N), generator=gen,
+                                            device="cuda")) + 0.49
     u = 0.1 * torch.randn((H, N), generator=gen, device="cuda")
     s0 = 0.1 * torch.randn((B, H, N, N), generator=gen, device="cuda")
     return r, k, v, w, u, s0
@@ -275,6 +330,19 @@ def phase_build() -> None:
         log = path.with_suffix(".log")
         if log.exists():
             print(log.read_text().strip())
+    for name, _, path in built:
+        n = tensor_core_instructions(path)
+        print(f"sass: {path.name}: {n} tensor-core instructions "
+              "(cuobjdump -sass | grep -cE 'HGMMA|HMMA')")
+        if name in TENSOR_CORE_KERNELS:
+            check(n > 0, f"{name}: no HGMMA/HMMA in its SASS")
+
+
+def tensor_core_instructions(lib: Path) -> int:
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return len(re.findall(r"^.*\b(HGMMA|HMMA)\b.*$", sass, re.M))
 
 
 def _report(name: str, cases: list) -> None:
@@ -304,6 +372,30 @@ def _flash_cases(gen) -> float:
         check(ok, f"flash_attention {cases[-1]}")
         if case in (MAIN, RG_ATTN):
             main_err = max(main_err, err)
+    for case in FLASH_STRIDED:
+        B, S, H, KV, Dh, causal, window, cap, bq, bk, dt = case
+        q, k, v = flash_inputs(case, gen, fused=True)
+        check(not q.is_contiguous(), "strided case: q is a strided view")
+        kw = dict(causal=causal, window=window, cap=cap)
+        out = fa_ops.attend(q, k, v, use_kernel=True, **kw)
+        ref = fa_ops.attend(q, k, v, use_kernel=False, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = (out.shape == ref.shape and out.dtype == dt
+              and bool(torch.isfinite(out).all()) and err <= TOL[dt])
+        cases.append({"shape": [B, S, H, KV, Dh], "causal": causal,
+                      "window": window, "cap": cap, "dtype": str(dt),
+                      "layout": "strided views of fused qkv",
+                      "max_abs_err": err, "tol": TOL[dt], "ok": ok})
+        check(ok, f"flash_attention {cases[-1]}")
+    # a bf16 head dim the tensor-core kernel has no form for is refused
+    q, k, v = flash_inputs((1, 64, 2, 1, 48, True, 0, 0.0, 0, 0,
+                            torch.bfloat16), gen)
+    try:
+        fa_ops.attend(q, k, v, use_kernel=True)
+        check(False, "flash_attention took a bf16 head dim of 48")
+    except ValueError as e:
+        print(f"flash_attention, bf16 Dh=48 refused: {e}")
     _report("flash_attention", cases)
     return main_err
 
@@ -346,6 +438,7 @@ def _lru_cases(gen) -> float:
 
 def _wkv_cases(gen) -> float:
     from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
     cases = []
     for case in WKV_CASES + [WKV_MAIN, WKV_DECODE]:
         r, k, v, w, u, s0 = wkv_inputs(case, gen)
@@ -360,17 +453,51 @@ def _wkv_cases(gen) -> float:
     out = wkv_ops.mix(r, k, v, w, u, s0, use_kernel=True)
     ref = wkv_ops.mix(r, k, v, w, u, s0, use_kernel=False)
     torch.cuda.synchronize()
+    cases.append(_rel_case(WKV_MAIN32, out, ref))
+    for case in WKV_EDGE:
+        for fast in (False, True):
+            r, k, v, w, u, s0 = wkv_inputs(case, gen, fast_decay=fast)
+            out = wkv_ops.mix(r, k, v, w, u, s0, use_kernel=True)
+            ref = wkv_ops.mix(r, k, v, w, u, s0, use_kernel=False)
+            torch.cuda.synchronize()
+            if case[4] == torch.float32:
+                cases.append(_rel_case(case, out, ref, fast_decay=fast))
+            else:
+                cases.append(_scan_case("wkv6", case[:4], case[4], out, ref,
+                                        True))
+                cases[-1]["fast_decay"] = fast
+    # the chunked kernel against the same math in plain PyTorch, at the
+    # prefill shape: a fault here is in the kernel, not in the chunked form
+    for case in (WKV_MAIN, WKV_MAIN32):
+        r, k, v, w, u, s0 = wkv_inputs(case, gen)
+        out = wkv_ops.mix(r, k, v, w, u, s0, use_kernel=True)
+        ref = wkv6_chunked_ref(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        if case[4] == torch.float32:
+            cases.append(_rel_case(case, out, ref, against="wkv6_chunked_ref"))
+        else:
+            cases.append(_scan_case("wkv6", case[:4], case[4], out, ref,
+                                    True))
+            cases[-1]["against"] = "wkv6_chunked_ref"
+    _report("wkv6", cases)
+    return main_err
+
+
+def _rel_case(case, out, ref, **extra) -> dict:
+    """fp32 wkv6 outputs held at WKV_REL_TOL of the reference's largest
+    value (see WKV_REL_TOL), finite."""
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
     err = max((o - x).abs().max().item() for o, x in zip(out, ref))
     rel = max(((o - x).abs().max() / x.abs().max()).item()
               for o, x in zip(out, ref))
-    cases.append({"shape": list(WKV_MAIN32[:4]), "dtype": "torch.float32",
-                  "init": True, "max_abs_err": err, "rel_max_err": rel,
-                  "rel_tol": WKV_REL_TOL,
-                  "ok": rel <= WKV_REL_TOL
-                  and all(bool(torch.isfinite(o).all()) for o in out)})
-    check(cases[-1]["ok"], f"wkv6 {cases[-1]}")
-    _report("wkv6", cases)
-    return main_err
+    row = {"shape": list(case[:4]), "dtype": str(case[4]), "init": True,
+           "chunked": wkv_kernel.chunked(case[1], case[3]),
+           "max_abs_err": err, "rel_max_err": rel, "rel_tol": WKV_REL_TOL,
+           **extra,
+           "ok": rel <= WKV_REL_TOL
+           and all(bool(torch.isfinite(o).all()) for o in out)}
+    check(row["ok"], f"wkv6 {row}")
+    return row
 
 
 def phase_kernels() -> dict:
@@ -535,21 +662,20 @@ def wkv_order_witness(model, plain_cfg, prompts, plain_logits) -> None:
 
 # ------------------------------------------------------------ kernel times
 def flash_times(case) -> dict:
-    """The kernel at a main path's shape (after the wrapper's padding)
-    against its bound, the plain version and SDPA."""
+    """The kernel at a main path's shape, called as the serving path calls
+    it (the model's layout, S unpadded), against its bound, the plain
+    version and SDPA (both on (B, H, S, Dh) copies, their layout)."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     B, Sq, H, KV, Dh, causal, window, *_, dt = case
     q, k, v = flash_inputs(case, torch.Generator(device="cuda").manual_seed(1))
-    Sp = -(-Sq // 128) * 128
-    qt, kt, vt = (F.pad(x.transpose(1, 2), (0, 0, 0, Sp - Sq)).contiguous()
-                  for x in (q, k, v))
-    kw = dict(causal=causal, window=window, cap=0.0, kv_len=Sq)
-    ms = cuda_ms(lambda: fa_kernel.flash_attention(qt, kt, vt, **kw))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kw = dict(causal=causal, window=window, cap=0.0)
+    ms = cuda_ms(lambda: fa_kernel.flash_attention(q, k, v, **kw))
     plain_ms = cuda_ms(lambda: flash_attention_ref(qt, kt, vt, **kw))
     # SDPA computes the same function only where the window masks nothing
     library_ms = None
-    if not window or window >= Sp:
+    if not window or window >= Sq:
         try:
             F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                            enable_gqa=True)
@@ -565,19 +691,19 @@ def flash_times(case) -> dict:
                                                       is_causal=True)
         library_ms = cuda_ms(lib_call)
 
-    # the work this call's masks leave: (query, key) pairs causal, inside
-    # the window and < kv_len
-    qpos = torch.arange(Sp, device="cuda")[:, None]
-    kpos = torch.arange(Sp, device="cuda")[None, :]
-    keep = (kpos <= qpos) & (kpos < Sq)
+    # the work this call's masks leave: (query, key) pairs causal and
+    # inside the window
+    qpos = torch.arange(Sq, device="cuda")[:, None]
+    kpos = torch.arange(Sq, device="cuda")[None, :]
+    keep = kpos <= qpos
     if window:
         keep &= kpos > qpos - window
     pairs = int(keep.sum())
-    # bytes: q, k, v read and o written once, kv_len rows (not the padding)
+    # bytes: q, k, v read and o written once
     b = bound(nbytes(q, k, v, q), 4 * B * H * pairs * Dh, dt)
-    print(f"  flash_attention (B={B} H={H} KV={KV} S={Sp} kv_len={Sq} "
-          f"Dh={Dh} window={window} {dt} causal): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, SDPA "
+    print(f"  flash_attention (B={B} H={H} KV={KV} S={Sq} Dh={Dh} "
+          f"window={window} {dt} causal, model layout): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, SDPA "
           f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}; "
           f"bound {b['bound_ms']:.4f} ms ({b['bytes']} bytes, {b['ops']} "
           "FLOP)")
@@ -615,14 +741,24 @@ def wkv_times(case) -> dict:
     # r, k, v, w, u, s0 in; o (r's size) and s_T (s0's size) out. Least
     # FLOP per (b, h, t): r S (2 N^2), the bonus v_j sum_i r_i u_i k_i
     # (3 N + 2 N) and S <- w S + k^T v (3 N^2): 5 N^2 + 5 N
-    bd = bound(nbytes(r, k, v, w, u, s0, r, s0),
-               B * H * T * (5 * N * N + 5 * N), torch.float32)
-    print(f"  wkv6 (B={B} T={T} H={H} N={N} {dt}, w fp32, s0): kernel "
+    # The operations at the rate of the units that do them: TF32 tensor
+    # cores for the chunked kernel, the CUDA cores for the recurrent one;
+    # the CUDA-core reading is printed beside it either way.
+    n_bytes, n_ops = (nbytes(r, k, v, w, u, s0, r, s0),
+                      B * H * T * (5 * N * N + 5 * N))
+    chunked = wkv_kernel.chunked(T, N)
+    bd = bound(n_bytes, n_ops, "tf32" if chunked else torch.float32)
+    cuda_cores = bound(n_bytes, n_ops, torch.float32)
+    print(f"  wkv6 (B={B} T={T} H={H} N={N} {dt}, w fp32, s0; "
+          f"{'chunked, tensor cores' if chunked else 'recurrent'}): kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library n/a (no single "
           f"PyTorch call computes the WKV recurrence); bound "
-          f"{bd['bound_ms']:.4f} ms ({bd['bytes']} bytes, {bd['ops']} FLOP)")
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['bytes']} bytes,"
+          f" {bd['ops']} FLOP; {cuda_cores['bound_ms']:.4f} ms at the CUDA "
+          "cores' 67 TFLOP/s fp32)")
     return {"shape": [B, T, H, N], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, **bd}
+            "library_ms": None, "chunked": chunked,
+            "bound_ms_cuda_cores": cuda_cores["bound_ms"], **bd}
 
 
 def _entry(name: str, runs: dict, err: float, times: list) -> dict:

@@ -14,8 +14,8 @@ the kernel cannot be built or launched. The plain version runs on the
 card only when the caller asks for it with ``use_kernel=False``.
 
 Kernels are built at first use by ``nvcc`` into a shared library with a
-plain C interface (no PyTorch headers), keyed on a hash of the source,
-under ``build/repro_torch_kernels/`` at the root of the checkout.
+plain C interface (no PyTorch headers), keyed on a hash of the sources
+and flags, under ``build/repro_torch_kernels/`` at the root of the checkout.
 """
 from __future__ import annotations
 
@@ -58,12 +58,22 @@ def _nvcc() -> str:
                        "build the port's kernels")
 
 
+def source_digest(source: Path) -> str:
+    """Hash of every file under the source's directory (the ``.cu`` and
+    any header it includes) and of the compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(p for p in source.parent.rglob("*") if p.is_file()):
+        h.update(f.relative_to(source.parent).as_posix().encode() + b"\0")
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build(name: str, source: Path) -> Path:
     """Compile ``source`` into ``BUILD_DIR/<name>-<hash>.so`` unless that
-    file exists already; returns its path. The compiler's report
-    (registers, shared memory, spills) lands beside it as ``.log``."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    file exists already; returns its path. The hash covers the whole
+    ``csrc/`` directory and the flags (``source_digest``). The compiler's
+    report (registers, shared memory, spills) lands beside it as ``.log``."""
+    digest = source_digest(source)
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():
         return out

@@ -1,70 +1,82 @@
 // Flash attention forward for NVIDIA Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py,
-// function `flash_attention` (Pallas body `_kernel`): attention forward with
-// causal, sliding-window and tanh soft-cap masks, GQA (kv head = h / (H/KV))
-// and a `kv_len` pad mask, fp32 online softmax (m, l, acc), fully masked
-// key tiles skipped.
+// function `flash_attention` (:88; Pallas body `_kernel`, :29-85): attention
+// forward with causal, sliding-window and tanh soft-cap masks, GQA (kv head =
+// h / (H/KV)) and a `kv_len` mask, fp32 online softmax (m, l, acc), key tiles
+// that no row can see skipped.
 //
-// What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense). At the
-// serving path's prefill shape, B=4, S=512 (500 padded), H=24, KV=2, Dh=128,
-// causal, bf16:
-//   operations ~ 4*B*H*S^2*Dh/2        ~ 6.4 GFLOP   -> 6.5 us at 989 TFLOP/s
-//   bytes      ~ q + o + k + v          ~ 27.3 MB    -> 8.1 us at 3.35 TB/s
-// so the card's bound is memory, at about 8 us.
+// Layout: the model's own. q, o (B, Sq, H, Dh); k, v (B, Sk, KV, Dh); the
+// head dimension contiguous, every other stride given (in elements). Any Sq
+// and Sk: the kernel masks the ragged last key tile itself (keys past Sk get
+// -inf and never count) and stores no row past Sq, so the caller neither
+// pads nor transposes. Numerics as the TPU kernel: scale = Dh^-0.5 before the
+// soft-cap; finite NEG_INF = -1e30 for masked keys; l clamped at 1e-30.
 //
-// What this design does about it. Each thread block owns one (b, h, 64-row
-// query tile); the TPU's sequential key-block grid axis with its VMEM
-// scratch (kernel.py:33-37, 82-85) becomes a loop inside the block. The
-// block stages each 64-key K/V tile in shared memory once for all its 64
-// query rows, keeps scores, m, l and acc on chip (the S x S scores never
-// reach device memory), and its loop bounds skip the key tiles that the
-// causal mask, the window or kv_len rule out. So device-memory traffic is
-// close to the bound: q and o once, k and v once per query tile (the
-// 12 GQA heads sharing a kv head hit L2 for it).
+// Two kernels, picked by dtype in the C entry point:
 //
-// This first version computes QK^T and PV in fp32 on the CUDA cores, as
-// the TPU kernel does after `astype(float32)` (kernel.py:51-53). Those
-// cores give 67 TFLOP/s, so the same 6.4 GFLOP take at least ~96 us here:
-// this kernel is bounded by its own fp32 FMA rate and shared-memory reads,
-// not by the card's bound. Tensor cores (mma.sync / wgmma) and TMA are the
-// later step that closes that gap.
+// bf16 (the serving path): tensor cores and TMA. One warpgroup (128 threads)
+// owns 64 query rows of one (b, h). Q comes by TMA once; K and V tiles of 32
+// keys come by TMA (4-D tensor maps over (Dh, heads, S, B), so the strides
+// live in the descriptor) into a ring of 2 stages, K and V each with their
+// own mbarrier, so each is refilled as soon as its last reader is done and
+// arrives a whole tile before it is needed. S = Q K^T is a `wgmma`
+// m64n32k16 chain with both operands in shared memory; the online softmax
+// runs on S in fp32 registers; P goes to bf16 in registers and O += P V is
+// a `wgmma` m64n{Dh}k16 chain with A from registers (P never touches shared
+// memory) and V read MN-major from shared memory. The loop is
+// software-pipelined: S_{j+1} is issued before P_j V_j, and its softmax runs
+// while P_j V_j is on the tensor cores. Masks are evaluated only on the key
+// tiles that need them. The shared tiles use the 128-byte swizzle (64-byte
+// at Dh 32, 32-byte at Dh 16) that TMA writes and `wgmma` reads; Dh > 64 is
+// held as Dh/64 slabs of 64 columns. Dh in {16, 32, 64, 128, 256}. At Dh
+// 256 the O accumulator is 128 fp32 registers a thread, and Q plus two
+// stages of K and V take 96 KB of shared memory (48 KB at Dh 128), so
+// several blocks share an SM. The TMA encoder (`cuTensorMapEncodeTiled`, a
+// driver-API call) is fetched with `cudaGetDriverEntryPoint`, so the library
+// links no -lcuda.
 //
-// Layout: q, o (B, H, Sq, Dh); k, v (B, KV, Sk, Dh); all contiguous.
-// Numerics: scale = Dh^-0.5 applied before the softcap; finite NEG_INF =
-// -1e30 for masked keys as in the TPU kernel; keys past the tensor's end
-// (the ragged last tile) get -inf and never count; l is clamped at 1e-30,
-// so no NaN arises, not even in padded rows. Output in the input dtype.
+// fp32: the CUDA-core kernel of the first port (both products as fp32 FMAs,
+// as the TPU kernel's `astype(float32)`); TF32 products would not hold the
+// fp32 tolerance of 1e-5. It reads the same strided layout.
+//
+// What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense), at the
+// serving paths' prefill shapes (bf16, B=4, S=500, causal):
+//   StarCoder2-3B, H=24 KV=2 Dh=128: q + k + v + o = 26.6 MB -> 7.9 us;
+//     4 * B * H * 125,250 pairs * Dh = 6.2 GFLOP -> 6.2 us. Bytes bound.
+//   RecurrentGemma-9B, H=16 KV=1 Dh=256 (window 2048): 34.8 MB -> 10.4 us.
+// The CUDA-core kernel this replaces at bf16 took 0.507 and 0.995 ms there
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md, PR 12), bounded by its own fp32
+// FMA rate (>= 96 us for the StarCoder2 work alone) and by the transposed,
+// padded copies its wrapper made. Here the products run at tensor-core
+// rate, the copies are gone, and what is left is one pass over q and o and
+// one pass over k, v per 64-row query tile (the GQA heads sharing a kv head
+// read it from L2).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
+constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Strides {  // in elements; the head dimension is contiguous
+  long long b, s, h;
+};
+
+// ------------------------------------------------ fp32, CUDA cores
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBQ = kWarps * kRowsPerWarp;   // 64 query rows per block
 constexpr int kBK = 64;                      // 64 keys per tile: 2 per lane
 constexpr int kKStride = kBK + 1;            // padded K^T row: no bank conflicts
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -80,12 +92,13 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // NT = number of 32-wide chunks of the head dimension each lane owns in
 // the output accumulator (lane owns dims lane, lane+32, ...): Dh <= 32*NT.
-template <typename T, int NT>
+template <int NT>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int KV,
-                 int Sq, int Sk, int Dh, int causal, int window, float cap,
-                 float scale, int kv_len) {
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, Strides sq,
+              Strides sk, Strides sv, Strides so, int H, int KV, int Sq,
+              int Sk, int Dh, int causal, int window, float cap, float scale,
+              int kv_len) {
   extern __shared__ float smem[];
   float* kT = smem;                    // [Dh][kKStride]  K tile, transposed
   float* vs = kT + Dh * kKStride;      // [kBK][Dh]       V tile
@@ -99,15 +112,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = warp * kRowsPerWarp;
 
-  const T* qb = q + (size_t)(b * H + h) * Sq * Dh;
-  const T* kb = k + (size_t)(b * KV + g) * Sk * Dh;
-  const T* vb = v + (size_t)(b * KV + g) * Sk * Dh;
-  T* ob = o + (size_t)(b * H + h) * Sq * Dh;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + g * sk.h;
+  const float* vb = v + b * sv.b + g * sv.h;
+  float* ob = o + b * so.b + h * so.h;
 
   for (int i = tid; i < kBQ * Dh; i += kThreads) {
     const int r = i / Dh, d = i - r * Dh;
     const int qpos = q0 + r;
-    qs[i] = qpos < Sq ? to_float(qb[(size_t)qpos * Dh + d]) : 0.f;
+    qs[i] = qpos < Sq ? qb[qpos * sq.s + d] : 0.f;
   }
 
   // Keys no row of this tile can see are never loaded.
@@ -132,8 +145,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kpos = k0 + j;
       float kx = 0.f, vx = 0.f;
       if (kpos < Sk) {
-        kx = to_float(kb[(size_t)kpos * Dh + d]);
-        vx = to_float(vb[(size_t)kpos * Dh + d]);
+        kx = kb[kpos * sk.s + d];
+        vx = vb[kpos * sv.s + d];
       }
       kT[d * kKStride + j] = kx;
       vs[i] = vx;
@@ -213,70 +226,556 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
       const int d = lane + 32 * t;
-      if (d < Dh) ob[(size_t)qpos * Dh + d] = from_float<T>(acc[r][t] / denom);
+      if (d < Dh) ob[qpos * so.s + d] = acc[r][t] / denom;
     }
   }
 }
 
-template <typename T, int NT>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int H, int KV, int Sq, int Sk, int Dh, int causal,
-                   int window, float cap, float scale, int kv_len,
-                   cudaStream_t stream) {
+template <int NT>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       Strides sq, Strides sk, Strides sv, Strides so, int B,
+                       int H, int KV, int Sq, int Sk, int Dh, int causal,
+                       int window, float cap, float scale, int kv_len,
+                       cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)Dh * kKStride + (size_t)kBK * Dh +
                        (size_t)kBQ * Dh);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, NT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KV, Sq, Sk, Dh, causal,
+  flash_fwd_f32<NT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so, H,
+      KV, Sq, Sk, Dh, causal, window, cap, scale, kv_len);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
+                         Strides sq, Strides sk, Strides sv, Strides so, int B,
+                         int H, int KV, int Sq, int Sk, int Dh, int causal,
+                         int window, float cap, float scale, int kv_len,
+                         cudaStream_t st) {
+  if (Dh <= 32)
+    return launch_f32<1>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk, Dh,
+                         causal, window, cap, scale, kv_len, st);
+  if (Dh <= 64)
+    return launch_f32<2>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk, Dh,
+                         causal, window, cap, scale, kv_len, st);
+  if (Dh <= 128)
+    return launch_f32<4>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk, Dh,
+                         causal, window, cap, scale, kv_len, st);
+  return launch_f32<8>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk, Dh,
+                       causal, window, cap, scale, kv_len, st);
+}
+
+// ------------------------------------------------ bf16, wgmma + TMA
+constexpr int kRows = 64;     // query rows per block (one warpgroup)
+constexpr int kStages = 2;    // K/V ring depth
+
+// keys per K/V tile: 32 keeps S and P small in registers and a block's
+// shared memory at 48 KB (Dh 128), so several blocks share an SM and hide
+// each other's load latency (32 measured faster than 64 at both serving
+// shapes on the H100)
+constexpr int kKeys = 32;
+constexpr int kWgThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory geometry of a ROWS-row tile of head dim DH. A row of one
+// slab is one swizzle row: 128 B (64 bf16) when DH >= 64, else DH * 2 bytes.
+template <int DH, int ROWS>
+struct Tile {
+  static constexpr int kCols = DH >= 64 ? 64 : DH;      // columns per slab
+  static constexpr int kSlabs = DH / kCols;
+  static constexpr int kRowBytes = kCols * 2;           // 128, 64 or 32
+  static constexpr int kSlabBytes = ROWS * kRowBytes;
+  static constexpr int kBytes = kSlabs * kSlabBytes;    // = ROWS * DH * 2
+  // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
+  static constexpr uint64_t kLayout = DH >= 64 ? 1 : (DH == 32 ? 2 : 3);
+  static constexpr int kGroupBytes = 8 * kRowBytes;     // 8 rows: one atom
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// start address, leading and stride byte offsets (all in 16 B units), and
+// the swizzle mode (bits 62-63).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+
+// K-major operand (Q or K tile, ROWS x DH): k-step kk covers head-dim
+// columns 16kk..16kk+15, 32 bytes into a swizzle row.
+template <int DH, int ROWS>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t base, int kk) {
+  using G = Tile<DH, ROWS>;
+  constexpr int kPerSlab = G::kCols / 16;
+  const uint32_t addr =
+      base + (kk / kPerSlab) * G::kSlabBytes + (kk % kPerSlab) * 32;
+  return make_desc(addr, 16, G::kGroupBytes, G::kLayout);
+}
+
+// MN-major operand (V tile as B of P V: K = keys, N = head dim): k-step kk
+// covers keys 16kk..16kk+15, i.e. 16 swizzle rows further; the N direction
+// crosses slabs at the leading byte offset.
+template <int DH, int ROWS>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t base, int kk) {
+  using G = Tile<DH, ROWS>;
+  return make_desc(base + kk * 16 * G::kRowBytes, G::kSlabBytes,
+                   G::kGroupBytes, G::kLayout);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA box of a 4-D map (dh, head, s, b) into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+template <int DH, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int head, int row0,
+                                          int b) {
+  using G = Tile<DH, ROWS>;
+#pragma unroll
+  for (int s = 0; s < G::kSlabs; ++s)
+    tma_load(dst + s * G::kSlabBytes, map, bar, s * G::kCols, head, row0, b);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// 2^x by the SFU alone (relative error ~2^-22, subnormal results flushed to
+// zero): enough for probabilities rounded to bf16 before P V.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// Accumulator layout of a 64 x N wgmma tile, thread t of the warpgroup:
+// register 4c + 2r + e holds row 16 (t / 32) + (t % 32) / 4 + 8r, column
+// 8c + 2 (t % 4) + e.
+
+// S = Q K^T for one key tile, issued and committed, not waited for.
+template <int DH>
+__device__ __forceinline__ void issue_qk(float (&s)[kKeys / 2], uint32_t q_tile,
+                                         uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    WgmmaSS<kKeys>::run(s, desc_kmajor<DH, kRows>(q_tile, kk),
+                       desc_kmajor<DH, kKeys>(k_tile, kk), kk > 0);
+  wgmma_commit();
+}
+
+// O += P V for one key tile, P from registers; issued and committed.
+template <int DH>
+__device__ __forceinline__ void issue_pv(float (&acc)[DH / 2],
+                                         const uint32_t (&pa)[kKeys / 16][4],
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+    WgmmaRS<DH>::run(acc, pa[kk], desc_mnmajor<DH, kKeys>(v_tile, kk));
+  wgmma_commit();
+}
+
+// Online softmax of one 64 x 64 score tile in base 2: s becomes p; m and
+// this thread's share of l are updated; corr is the factor the output rows
+// must still be scaled by. Masks are evaluated only on tiles that need them.
+struct SoftmaxArgs {
+  int q0, Sk, causal, window, kv_len;
+  float cap, scale, scale2;  // scale2 = scale * log2(e)
+};
+
+__device__ __forceinline__ void softmax_tile(float (&s)[kKeys / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             int k0, int row_a, int col_q,
+                                             const SoftmaxArgs& a) {
+  const float neg2 = kNegInf * kLog2e;
+  const int q_last = a.q0 + kRows - 1, k_last = k0 + kKeys - 1;
+  const bool masked = (a.causal && k_last > a.q0) ||
+                      (a.window > 0 && k0 <= q_last - a.window) ||
+                      k_last >= a.Sk || (a.kv_len >= 0 && k_last >= a.kv_len);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = a.q0 + row_a + 8 * r;
+    float mx = m[r];
+#pragma unroll
+    for (int c = 0; c < kKeys / 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = s[4 * c + 2 * r + e];
+        if (a.cap > 0.f)
+          x = a.cap * tanhf(x * a.scale / a.cap) * kLog2e;
+        else
+          x *= a.scale2;
+        if (masked) {
+          const int kpos = k0 + 8 * c + col_q + e;
+          bool ok = true;
+          if (a.causal) ok = ok && kpos <= qpos;
+          if (a.window > 0) ok = ok && kpos > qpos - a.window;
+          if (a.kv_len >= 0) ok = ok && kpos < a.kv_len;
+          x = ok ? x : neg2;
+          if (kpos >= a.Sk) x = -INFINITY;
+        }
+        s[4 * c + 2 * r + e] = x;
+        mx = fmaxf(mx, x);
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    corr[r] = fast_exp2(m[r] - mx);
+    m[r] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < kKeys / 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = fast_exp2(s[4 * c + 2 * r + e] - mx);
+        s[4 * c + 2 * r + e] = p;
+        sum += p;
+      }
+    }
+    l[r] = l[r] * corr[r] + sum;  // this thread's share of the row
+  }
+}
+
+// The output rows scaled by corr, and P to bf16 A fragments (the
+// reference's p.astype(v.dtype)); the m64nNk16 A layout per warp equals the
+// accumulator layout of 16 score columns.
+template <int DH>
+__device__ __forceinline__ void rescale_and_pack(float (&acc)[DH / 2],
+                                                 const float (&corr)[2],
+                                                 const float (&s)[kKeys / 2],
+                                                 uint32_t (&pa)[kKeys / 16][4]) {
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) {
+    acc[4 * c] *= corr[0];
+    acc[4 * c + 1] *= corr[0];
+    acc[4 * c + 2] *= corr[1];
+    acc[4 * c + 3] *= corr[1];
+  }
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// The loop is software-pipelined: while P_j V_j runs on the tensor cores,
+// S_{j+1} (issued just before it) is already done and its softmax runs on
+// the CUDA cores; the output rescale waits for P_j V_j.
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               __nv_bfloat16* __restrict__ o, Strides so, int H, int KV,
+               int Sq, int Sk, int causal, int window, float cap, float scale,
+               int kv_len) {
+  using QT = Tile<DH, kRows>;
+  using KT = Tile<DH, kKeys>;
+  extern __shared__ uint8_t smem_raw[];
+  // every tile on a 1024 B boundary: the 128 B swizzle repeats every 1024 B
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sq = smem_addr(smem);
+  const uint32_t skv = sq + QT::kBytes;  // stage s: K at +2s tiles, V at +2s+1
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + QT::kBytes +
+                                               2 * kStages * KT::kBytes);
+  const uint32_t bar_q = smem_addr(bars);
+  const uint32_t bar_k = bar_q + 8;               // K of stage s at + 8s
+  const uint32_t bar_v = bar_k + 8 * kStages;     // V of stage s at + 8s
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / KV);
+  const int q0 = qt * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  int k_end = Sk;
+  if (kv_len >= 0) k_end = min(k_end, kv_len);
+  if (causal) k_end = min(k_end, q0 + kRows);
+  const int k_first = window > 0 ? max(0, q0 - window + 1) / kKeys * kKeys : 0;
+  const int n_tiles = k_end > k_first ? (k_end - k_first + kKeys - 1) / kKeys : 0;
+
+  // K_i and V_i go to stage i % 2, each with its own barrier, so each is
+  // refilled as soon as its last reader is done: K one tile earlier than V.
+  auto load_k = [&](int i) {
+    const uint32_t bar = bar_k + 8 * (i % kStages);
+    mbar_expect_tx(bar, KT::kBytes);
+    load_tile<DH, kKeys>(skv + 2 * (i % kStages) * KT::kBytes, &map_k, bar, g,
+                         k_first + i * kKeys, b);
+  };
+  auto load_v = [&](int i) {
+    const uint32_t bar = bar_v + 8 * (i % kStages);
+    mbar_expect_tx(bar, KT::kBytes);
+    load_tile<DH, kKeys>(skv + (2 * (i % kStages) + 1) * KT::kBytes, &map_v,
+                         bar, g, k_first + i * kKeys, b);
+  };
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < 2 * kStages; ++s) mbar_init(bar_k + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_q, QT::kBytes);
+    load_tile<DH, kRows>(sq, &map_q, bar_q, h, q0, b);
+    for (int j = 0; j < kStages && j < n_tiles; ++j) {
+      load_k(j);
+      load_v(j);
+    }
+  }
+  __syncthreads();
+
+  const int row_a = warp * 16 + (lane >> 2);  // this thread's rows: row_a, row_a + 8
+  const int col_q = 2 * (lane & 3);
+  const SoftmaxArgs args{q0, Sk, causal, window, kv_len, cap, scale,
+                         scale * kLog2e};
+
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  float s[kKeys / 2];
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.f;
+  float m[2] = {kNegInf * kLog2e, kNegInf * kLog2e}, l[2] = {0.f, 0.f};
+  float corr[2];
+  uint32_t pa[kKeys / 16][4];
+
+  mbar_wait(bar_q, 0);
+  if (n_tiles > 0) {
+    mbar_wait(bar_k, 0);
+    wgmma_fence();
+    issue_qk<DH>(s, sq, skv);
+    wgmma_wait_all();
+    softmax_tile(s, m, l, corr, k_first, row_a, col_q, args);
+    rescale_and_pack<DH>(acc, corr, s, pa);
+    __syncthreads();  // K_0 read by every warp: its stage takes K_2
+    if (tid == 0 && kStages < n_tiles) load_k(kStages);
+  }
+  // Tiles 0 .. n-2: S_{j+1} and P_j V_j in flight together. The branch-free
+  // body lets ptxas see that each read of s follows the wait for its group.
+  for (int j = 0; j + 1 < n_tiles; ++j) {
+    const int stage = j % kStages, nstage = (j + 1) % kStages;
+    const uint32_t v_tile = skv + (2 * stage + 1) * KT::kBytes;
+    mbar_wait(bar_k + 8 * nstage, ((j + 1) / kStages) & 1);
+    mbar_wait(bar_v + 8 * stage, (j / kStages) & 1);
+    wgmma_fence();
+    issue_qk<DH>(s, sq, skv + 2 * nstage * KT::kBytes);
+    issue_pv<DH>(acc, pa, v_tile);
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    softmax_tile(s, m, l, corr, k_first + (j + 1) * kKeys, row_a,
+                 col_q, args);
+    wgmma_wait_all();
+
+    // every warp is done with K_{j+1} and V_j: their stages take K_{j+3}
+    // and V_{j+2}, each a whole tile ahead of its first reader
+    __syncthreads();
+    if (tid == 0) {
+      if (j + 1 + kStages < n_tiles) load_k(j + 1 + kStages);
+      if (j + kStages < n_tiles) load_v(j + kStages);
+    }
+    rescale_and_pack<DH>(acc, corr, s, pa);
+  }
+  if (n_tiles > 0) {  // the last tile: P V alone
+    const int j = n_tiles - 1;
+    mbar_wait(bar_v + 8 * (j % kStages), (j / kStages) & 1);
+    wgmma_fence();
+    issue_pv<DH>(acc, pa, skv + (2 * (j % kStages) + 1) * KT::kBytes);
+    wgmma_wait_all();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(kFull, sum, 1);
+    sum += __shfl_xor_sync(kFull, sum, 2);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    const int qpos = q0 + row_a + 8 * r;
+    if (qpos >= Sq) continue;
+    __nv_bfloat16* orow = o + b * so.b + qpos * so.s + h * so.h;
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c)
+      *reinterpret_cast<uint32_t*>(orow + 8 * c + col_q) =
+          pack_bf16(acc[4 * c + 2 * r] * inv, acc[4 * c + 2 * r + 1] * inv);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// 4-D map over (dh, head, s, b) of a bf16 tensor, box (slab cols, 1, ROWS,
+// 1); out-of-range rows read as zeros.
+template <int DH, int ROWS>
+bool make_map(CUtensorMap* map, const void* base, int heads, int S, int B,
+              Strides st) {
+  using G = Tile<DH, ROWS>;
+  const EncodeTiled encode = encode_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)G::kCols, 1, ROWS, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = DH >= 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : DH == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        Strides sq, Strides sk, Strides sv, Strides so, int B,
+                        int H, int KV, int Sq, int Sk, int causal, int window,
+                        float cap, float scale, int kv_len,
+                        cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map<DH, kRows>(&mq, q, H, Sq, B, sq) ||
+      !make_map<DH, kKeys>(&mk, k, KV, Sk, B, sk) ||
+      !make_map<DH, kKeys>(&mv, v, KV, Sk, B, sv))
+    return cudaErrorInvalidValue;
+  const size_t smem = Tile<DH, kRows>::kBytes +
+                      2 * kStages * Tile<DH, kKeys>::kBytes + 1024 + 64;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kRows - 1) / kRows, H, B);
+  flash_fwd_bf16<DH><<<grid, kWgThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), so, H, KV, Sq, Sk, causal,
       window, cap, scale, kv_len);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int KV, int Sq, int Sk, int Dh, int causal,
-                     int window, float cap, float scale, int kv_len,
-                     cudaStream_t stream) {
-  if (Dh <= 32)
-    return launch<T, 1>(q, k, v, o, B, H, KV, Sq, Sk, Dh, causal, window, cap,
-                        scale, kv_len, stream);
-  if (Dh <= 64)
-    return launch<T, 2>(q, k, v, o, B, H, KV, Sq, Sk, Dh, causal, window, cap,
-                        scale, kv_len, stream);
-  if (Dh <= 128)
-    return launch<T, 4>(q, k, v, o, B, H, KV, Sq, Sk, Dh, causal, window, cap,
-                        scale, kv_len, stream);
-  return launch<T, 8>(q, k, v, o, B, H, KV, Sq, Sk, Dh, causal, window, cap,
-                      scale, kv_len, stream);
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
+                          Strides sq, Strides sk, Strides sv, Strides so,
+                          int B, int H, int KV, int Sq, int Sk, int Dh,
+                          int causal, int window, float cap, float scale,
+                          int kv_len, cudaStream_t st) {
+  switch (Dh) {
+    case 16:
+      return launch_bf16<16>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
+                             causal, window, cap, scale, kv_len, st);
+    case 32:
+      return launch_bf16<32>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
+                             causal, window, cap, scale, kv_len, st);
+    case 64:
+      return launch_bf16<64>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
+                             causal, window, cap, scale, kv_len, st);
+    case 128:
+      return launch_bf16<128>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
+                              causal, window, cap, scale, kv_len, st);
+    case 256:
+      return launch_bf16<256>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
+                              causal, window, cap, scale, kv_len, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. kv_len < 0 means "no pad mask".
-// Returns a cudaError_t (0 on success); the caller raises on anything else.
+// q, o: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); `strides` holds (b, s, h) in
+// elements for q, k, v, o in that order, the head dimension contiguous.
+// dtype: 0 = float32 (Dh <= 256), 1 = bfloat16 (Dh in {16, 32, 64, 128,
+// 256}). kv_len < 0 means "no kv_len mask". Returns a cudaError_t (0 on
+// success); the caller raises on anything else.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
-                                         const void* v, void* o, int B, int H,
-                                         int KV, int Sq, int Sk, int Dh,
-                                         int causal, int window, float cap,
-                                         float scale, int kv_len, int dtype,
-                                         void* stream) {
+                                         const void* v, void* o,
+                                         const long long* strides, int B,
+                                         int H, int KV, int Sq, int Sk,
+                                         int Dh, int causal, int window,
+                                         float cap, float scale, int kv_len,
+                                         int dtype, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
-      Dh <= 0 || Dh > 256)
+      Dh <= 0 || Dh > 256 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
+  const Strides sq{strides[0], strides[1], strides[2]};
+  const Strides sk{strides[3], strides[4], strides[5]};
+  const Strides sv{strides[6], strides[7], strides[8]};
+  const Strides so{strides[9], strides[10], strides[11]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch<float>(q, k, v, o, B, H, KV, Sq, Sk, Dh, causal,
-                                window, cap, scale, kv_len, st);
+    return (int)dispatch_f32(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk, Dh,
+                             causal, window, cap, scale, kv_len, st);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk, Dh,
-                                        causal, window, cap, scale, kv_len,
-                                        st);
+    return (int)dispatch_bf16(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
+                              Dh, causal, window, cap, scale, kv_len, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,12 +1,15 @@
 """Public wrapper for the flash attention kernel.
 
 Counterpart of ``repro/kernels/flash_attention/ops.py::attend``: accepts
-the model's (B, S, H, Dh) layout, transposes to the kernel's
-(B, H, S, Dh), pads the sequence to a block multiple (with ``kv_len``
-set only when padding happened, as the reference does) and routes: a
-CUDA tensor goes through the hand-written kernel, or to the plain
-version only when the caller asks with ``use_kernel=False``; a CPU
-tensor goes through the plain version.
+the model's (B, S, H, Dh) layout and routes. A CUDA tensor goes straight
+to the hand-written kernel, which reads that layout and masks the ragged
+last tile itself: no transpose, pad or copy, and the output is the
+model's layout. A CPU tensor (or a CUDA one with ``use_kernel=False``)
+takes the plain version the reference's way: transposed to
+(B, H, S, Dh) and padded to a block multiple, with ``kv_len`` set only
+when padding happened. Padding changes no real row: padded keys are
+masked by ``kv_len`` and padded query rows are sliced away, so both
+routes compute one function.
 
 Forward only: the reference's backward (the VJP of ``ref.py``) waits for
 the training slice.
@@ -24,8 +27,10 @@ def attend(q, k, v, *, causal: bool = True, window: int = 0,
            cap: float = 0.0, bq: int = 128, bk: int = 128,
            use_kernel: bool = True):
     """q: (B, S, H, Dh); k, v: (B, S, KV, Dh) -> (B, S, H, Dh)."""
-    B, Sq, H, Dh = q.shape
-    Sk = k.shape[1]
+    if use_kernel_for(q, use_kernel):
+        return kernel.flash_attention(q, k, v, causal=causal, window=window,
+                                      cap=cap)
+    Sq, Sk = q.shape[1], k.shape[1]
     qt = q.transpose(1, 2)
     kt = k.transpose(1, 2)
     vt = v.transpose(1, 2)
@@ -39,11 +44,6 @@ def attend(q, k, v, *, causal: bool = True, window: int = 0,
     if pk:
         kt = F.pad(kt, (0, 0, 0, pk))
         vt = F.pad(vt, (0, 0, 0, pk))
-    if use_kernel_for(q, use_kernel):
-        ot = kernel.flash_attention(
-            qt.contiguous(), kt.contiguous(), vt.contiguous(), causal=causal,
-            window=window, cap=cap, kv_len=kv_len)
-    else:
-        ot = flash_attention_ref(qt, kt, vt, causal=causal, window=window,
-                                 cap=cap, kv_len=kv_len)
+    ot = flash_attention_ref(qt, kt, vt, causal=causal, window=window,
+                             cap=cap, kv_len=kv_len)
     return ot[:, :, :Sq].transpose(1, 2)

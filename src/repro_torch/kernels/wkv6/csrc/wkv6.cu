@@ -1,41 +1,64 @@
 // WKV6 forward for NVIDIA Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel src/repro/kernels/wkv6/kernel.py, function `wkv6`
-// (Pallas body `_kernel`): the RWKV-6 recurrence, per (batch, head), with an
-// N x N fp32 state
+// (:52; Pallas body `_kernel`, :24-49): the RWKV-6 recurrence, per (batch,
+// head), with an N x N fp32 state
 //
 //   o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 //   S_t = diag(w_t) S_{t-1} + k_t^T v_t
 //
 // o in r's dtype, S_T in fp32, S_{-1} = s0 or 0.
 //
-// What bounds it on an H100 SXM (3.35 TB/s; 67 TFLOP/s fp32 on the CUDA
-// cores). At the serving path's prefill shape, B=4, T=500, H=64, N=64, bf16
-// r/k/v/o and fp32 w: bytes = r + k + v + o (4 * 16.4 MB) + w (32.8 MB)
-// + s0 + S_T (2 * 4.2 MB) ~ 106.7 MB -> ~32 us; operations ~ 7 N^2 per
-// (b, h, t) ~ 3.7 GFLOP -> ~55 us. So the card's bound is the fp32
-// arithmetic, at about 55 us. In decode (T = 1) it is the state: s0 in and
-// S_T out, 8.4 MB -> ~2.5 us.
+// What bounds it on an H100 SXM (3.35 TB/s; 495 TFLOP/s TF32 on the tensor
+// cores, 67 TFLOP/s fp32 on the CUDA cores). At the RWKV-6 prefill shape,
+// B=4, T=500, H=64, N=64, bf16 r/k/v/o and fp32 w: bytes = r + k + v + o
+// (4 * 16.4 MB) + w (32.8 MB) + s0 + S_T (2 * 4.2 MB) = 106.7 MB -> 31.9 us;
+// the least work, 5 N^2 + 5 N FLOP per (b, h, t), is 2.66 GFLOP: 39.7 us on
+// the CUDA cores, 5.4 us on the TF32 tensor cores. So once the products run
+// on the tensor cores the bound is the bytes, 31.9 us. In decode (T = 1) it
+// is the state: s0 in and S_T out, 8.4 MB -> 2.6 us.
 //
-// What this design does about it. The recurrence is sequential in t; the
-// parallelism is (b, h) and, inside one step, the N x N state. One block
-// owns one (b, h) with N threads; thread j keeps column j of the state
-// (S_ij, i < N) in registers for the whole sequence, so the state never
-// touches device memory between s0 and S_T. The TPU's sequential chunk
-// grid axis with the state in VMEM scratch (kernel.py:26-49) becomes the
-// time loop inside the block. Each step, thread j loads element j of r_t,
-// k_t, v_t and w_t (N contiguous values per tensor: coalesced), r, k, w go
-// to shared memory (double-buffered, so one barrier per step), and thread j
-// computes o_j = sum_i r_i (S_ij + u_i k_i v_j) and S_ij <- w_i S_ij + k_i
-// v_j, reading r_i, k_i, w_i, u_i as shared-memory broadcasts. The next
-// step's loads are issued before this step's arithmetic. At B*H = 256
-// blocks of 64 threads the card holds every block at once; the time loop's
-// barrier and load latency, not the bound, will set this kernel's pace.
-// Chunked forms (intra-chunk products on the tensor cores) are the later
-// step.
+// Two kernels; the entry point launches exactly one per call, by T.
 //
-// Any T (T = 1 in decode). N in {8, 16, 32, 64}: the state column is an
-// array of N registers, so N is a template argument.
+// T >= 32 and N >= 16: the chunked form, `wkv6_chunked`. The recurrent
+// kernel below walks T dependent steps, each a barrier and a 64-term FMA
+// chain, and its latency set its pace: 0.366 ms at the prefill shape, 9.2x
+// the CUDA-core bound (NVIDIA H100 80GB HBM3, 700 W; PERF.md, PR 12). Here a
+// block owns one (b, h) and walks T/32 chunks of C = 32 steps. With
+// P[t] = sum_{i<t} log2 w_i inside the chunk (P[0] = 0; all powers of 2), a
+// chunk's outputs and state are
+//
+//   o_t    = (r_t 2^{P[t]}) S_in + sum_{s<t} A[t,s] v_s + (r_t u k_t) v_t
+//   A[t,s] = sum_n r_t[n] k_s[n] 2^{P[t][n] - P[s+1][n]}
+//   S_out  = diag(2^{P[C]}) S_in + sum_s (k_s 2^{P[C] - P[s+1]})^T v_s
+//
+// Splitting 2^{P[t] - P[s+1]} into 2^{P[t]} and 2^{-P[s+1]} would overflow
+// fp32 once -P passes 128 (w = 0.25 over 64 steps), so every factor is kept
+// <= 1. The chunk is four sub-chunks of L = 8 steps. A block of A between
+// sub-chunks a < b is factored about their boundaries: (r_t 2^{P[t] -
+// P[L b]}) (2^{P[L b] - P[L (a+1)]}) (k_s 2^{P[L (a+1)] - P[s+1]}); a
+// diagonal block is summed pair by pair with 2^{P[t] - P[s+1]} <= 1; the
+// inter-chunk factors have exponents <= 0. The sums of log2 w are kept per
+// sub-chunk, so the exponents inside one are differences of small numbers.
+// Four products run on the tensor cores as mma.sync m16n8k8 TF32 with the
+// 3xTF32 split (a = a_hi + a_lo, both rounded; a_lo b_hi + a_hi b_lo +
+// a_hi b_hi), so they keep fp32 accuracy (a bf16 v is exact in TF32 and
+// needs two): the blocks of A between sub-chunks, A V, (r 2^{P}) S_in and
+// the state update. r, k, v, w of the next chunk arrive by cp.async into a
+// second buffer while this chunk computes. The state stays on chip, in the
+// registers of the warps that update it and in shared memory for the
+// (r 2^{P}) S_in product. One block per (b, h), 8 warps, four barriers a
+// chunk: 256 blocks, two resident per SM in bf16. Splitting a (b, h) over
+// blocks by state columns would repeat A in each. It runs in 0.18 ms at the
+// prefill shape (PERF.md, PR 13): the chunk's phases are short and
+// barrier-separated, so latency and shared-memory traffic, not the bound,
+// set the pace.
+//
+// T < 32 (decode's T = 1 included) or N = 8: the recurrent kernel,
+// `wkv6_kernel`, unchanged: 62 % of its bound at T = 1 (PR 12). One block
+// per (b, h) with N threads; thread j keeps column j of the state in
+// registers; r, k, w of a step are staged in double-buffered shared memory,
+// so one barrier per step suffices.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +80,7 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// ------------------------------------------------ recurrent, any T
 // grid (H, B), N threads; r, k, v, w, o: (B, T, H, N); u: (H, N);
 // s0, s_T: (B, H, N, N) with S_ij at [i * N + j].
 template <typename T, int N>
@@ -111,11 +135,427 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
   for (int i = 0; i < N; ++i) s_T[state + i * N] = S[i];
 }
 
+// ------------------------------------------------ chunked, T >= kChunk
+constexpr int kChunk = 32;         // C: steps per chunk
+constexpr int kSub = 8;            // L: steps per sub-chunk
+constexpr int kNSub = kChunk / kSub;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+
+// mma.sync m16n8k8 TF32 fragments, lane = 4g + q:
+//   A (16 x 8, row-major): a0 (g, q), a1 (g + 8, q), a2 (g, q + 4),
+//                          a3 (g + 8, q + 4)
+//   B (8 x 8):             b0 (k = q, n = g), b1 (k = q + 4, n = g)
+//   C (16 x 8):            c0 (g, 2q), c1 (g, 2q + 1), c2 (g + 8, 2q),
+//                          c3 (g + 8, 2q + 1)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[nt] (16 x 8) += A (16 x 8 KSTEPS) B (8 KSTEPS x 8 NT, columns 8 nt..)
+// in 3xTF32; a_at(i, kk) and b_at(kk, j) give the fp32 operands, each A
+// fragment loaded once for the NT tiles. B_EXACT: every B value is exact in
+// TF32 (a bf16 input), so its low part is zero and that product is skipped.
+// The small products go to their own accumulator, added at the end: two
+// independent chains of MMAs instead of one.
+template <int KSTEPS, int NT, bool B_EXACT, class FA, class FB>
+__device__ __forceinline__ void tile_mma(float (&c)[NT][4], FA a_at, FB b_at) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  float d[NT][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const int kk = 8 * ks + q;
+    uint32_t ah[4], al[4];
+    split_tf32(a_at(g, kk), ah[0], al[0]);
+    split_tf32(a_at(g + 8, kk), ah[1], al[1]);
+    split_tf32(a_at(g, kk + 4), ah[2], al[2]);
+    split_tf32(a_at(g + 8, kk + 4), ah[3], al[3]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t bh0, bh1, bl0, bl1;
+      if (B_EXACT) {
+        bh0 = __float_as_uint(b_at(kk, 8 * nt + g));
+        bh1 = __float_as_uint(b_at(kk + 4, 8 * nt + g));
+      } else {
+        split_tf32(b_at(kk, 8 * nt + g), bh0, bl0);
+        split_tf32(b_at(kk + 4, 8 * nt + g), bh1, bl1);
+      }
+      mma_tf32(d[nt], al, bh0, bh1);
+      if (!B_EXACT) mma_tf32(d[nt], ah, bl0, bl1);
+      mma_tf32(c[nt], ah, bh0, bh1);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] += d[nt][e];
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Shared memory of one block, in floats (raw tiles in T). Row strides are
+// padded so the fragment loads hit distinct banks.
+template <typename T, int N>
+struct Smem {
+  static constexpr int kRaw = N + 8;      // raw r, k, v, w rows
+  static constexpr int kRow = N + 4;      // rhat, khat rows
+  static constexpr int kP = N + 2;        // E, I rows: rows t and t + 8 in other banks
+  static constexpr int kA = kChunk + 4;   // A rows
+  static constexpr int kS = N + 8;        // state rows
+  struct Raw {
+    T r[kChunk][kRaw], k[kChunk][kRaw], v[kChunk][kRaw];
+    float w[kChunk][kRaw];
+  };
+  Raw raw[2];
+  float E[kChunk][kP];          // sum of log2 w from the sub-chunk's start to t - 1
+  float I[kChunk][kP];          // ... to t
+  float rhat[kChunk][kRow];     // r_t 2^{E[t]} = r_t 2^{P[t] - P[L b(t)]}
+  float khat[kChunk][kRow];     // k_s 2^{P[L (b(s) + 1)] - P[s + 1]}
+  float A[kChunk][kA];          // intra-chunk A, bonus on the diagonal
+  float S[N][kS];               // S_in
+  float gR[kNSub][N];           // 2^{P[L b]}: rhat -> r_t 2^{P[t]}
+  float gK[kNSub][N];           // 2^{P[C] - P[L (b + 1)]}: khat -> k_s 2^{P[C] - P[s+1]}
+  float mid[kNSub][kNSub][N];   // [a][b]: 2^{P[L b] - P[L (a + 1)]} for a < b, else 0
+  float gC[N];                  // 2^{P[C]}
+  float u[N];
+};
+
+// grid (H, B), kThreads; layouts as wkv6_kernel.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
+wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
+             const T* __restrict__ v, const float* __restrict__ w,
+             const float* __restrict__ u, const float* __restrict__ s0,
+             T* __restrict__ o, float* __restrict__ s_T, int steps, int H) {
+  using SM = Smem<T, N>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  SM& sm = *reinterpret_cast<SM*>(smem_raw);
+  constexpr bool kExactV = sizeof(T) == 2;   // bf16 v is exact in TF32
+  // output tiles (16 steps x 8 columns): kONT per warp task, sharing rows
+  constexpr int kONT = N >= 32 ? N / 32 : 1;
+  constexpr int kOTasks = (kChunk / 16) * (N / 8) / kONT;
+  // state tiles (16 channels x 8 columns): kSNT per warp, sharing rows; a
+  // warp keeps its tiles of the state in registers from chunk to chunk
+  constexpr int kSTiles = (N / 16) * (N / 8);
+  constexpr int kSNT = kSTiles > kWarps ? kSTiles / kWarps : 1;
+  constexpr int kSTasks = kSTiles / kSNT;
+  static_assert(kSTasks <= kWarps && kChunk == 32 && kSub == 8,
+                "layout: a half-warp per diagonal row pair");
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const size_t row_stride = (size_t)H * N;                // one step
+  const size_t base = ((size_t)b * steps * H + h) * N;    // (b, 0, h, 0)
+  const size_t sbase = (size_t)(b * H + h) * N * N;
+  const int n_chunks = (steps + kChunk - 1) / kChunk;
+
+  auto load_chunk = [&](int c, int buf) {
+    typename SM::Raw& dst = sm.raw[buf];
+    constexpr int kPerRowT = N * sizeof(T) / 16, kPerRowW = N * 4 / 16;
+    constexpr int kTotal = kChunk * (3 * kPerRowT + kPerRowW);
+#pragma unroll
+    for (int it = 0; it < (kTotal + kThreads - 1) / kThreads; ++it) {
+      const int i = tid + it * kThreads;
+      if (i >= kTotal) break;
+      int t, part, which;
+      if (i < 3 * kChunk * kPerRowT) {
+        which = i / (kChunk * kPerRowT);
+        const int rem = i % (kChunk * kPerRowT);
+        t = rem / kPerRowT;
+        part = rem % kPerRowT;
+      } else {
+        which = 3;
+        const int rem = i - 3 * kChunk * kPerRowT;
+        t = rem / kPerRowW;
+        part = rem % kPerRowW;
+      }
+      const int step = c * kChunk + t;
+      const bool valid = step < steps;
+      const size_t off = base + (size_t)(valid ? step : 0) * row_stride;
+      if (which == 3) {
+        cp_async16(&dst.w[t][part * 4], w + off + part * 4, valid);
+      } else {
+        const T* src = which == 0 ? r : which == 1 ? k : v;
+        T* d = which == 0 ? &dst.r[t][0] : which == 1 ? &dst.k[t][0] : &dst.v[t][0];
+        constexpr int kElems = 16 / sizeof(T);
+        cp_async16(d + part * kElems, src + off + part * kElems, valid);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  load_chunk(0, 0);
+
+  // this warp's state tiles: rows s_n0 .. s_n0 + 15, columns s_j0 .. + 8 kSNT
+  const bool s_owner = warp < kSTasks;
+  const int s_n0 = 16 * (warp / ((N / 8) / kSNT));
+  const int s_j0 = 8 * kSNT * (warp % ((N / 8) / kSNT));
+  float Sreg[kSNT][4];
+#pragma unroll
+  for (int nt = 0; nt < kSNT; ++nt) {
+    const int row = s_n0 + g, col = s_j0 + 8 * nt + 2 * q;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) Sreg[nt][e] = 0.f;
+    if (s_owner && s0 != nullptr) {
+      Sreg[nt][0] = s0[sbase + row * N + col];
+      Sreg[nt][1] = s0[sbase + row * N + col + 1];
+      Sreg[nt][2] = s0[sbase + (row + 8) * N + col];
+      Sreg[nt][3] = s0[sbase + (row + 8) * N + col + 1];
+    }
+  }
+  for (int i = tid; i < N * N; i += kThreads)
+    sm.S[i / N][i % N] = s0 != nullptr ? s0[sbase + i] : 0.f;
+  for (int i = tid; i < N; i += kThreads) sm.u[i] = u[h * N + i];
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int buf = c & 1;
+    const typename SM::Raw& raw = sm.raw[buf];
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // chunk c landed; every read of chunk c - 1 is done
+    if (c + 1 < n_chunks) load_chunk(c + 1, buf ^ 1);
+    const int valid = min(kChunk, steps - c * kChunk);
+
+    // (1) Thread (n, b): channel n, sub-chunk b. log2 w summed over the
+    // sub-chunk's steps from its start (E, I: the sums before and through
+    // step t, differences of small numbers inside a sub-chunk), the factors
+    // rhat = r 2^{E}, khat = k 2^{tot_b - I}; then, from the four lanes of
+    // channel n, the sub-chunk totals and their powers, each 2^x, x <= 0:
+    //   gR = 2^{P[L b]}, gK = 2^{P[C] - P[L (b + 1)]},
+    //   mid[a][b] = 2^{P[L b] - P[L (a + 1)]}, gC = 2^{P[C]},
+    // with P[t] = sum_{b' < b(t)} tot_b' + E[t].
+    {
+      static_assert(kThreads == kNSub * 64, "four lanes per channel, N <= 64");
+      const int n = tid / kNSub, sb = tid % kNSub;
+      if (n < N) {  // warp-uniform: N is a multiple of 8
+        float lw[kSub];
+#pragma unroll
+        for (int i = 0; i < kSub; ++i) {
+          const int t = kSub * sb + i;
+          lw[i] = t < valid ? log2f(raw.w[t][n]) : 0.f;  // padded steps: w = 1
+        }
+        float run = 0.f;
+#pragma unroll
+        for (int i = 0; i < kSub; ++i) {
+          const int t = kSub * sb + i;
+          sm.E[t][n] = run;
+          sm.rhat[t][n] = to_float(raw.r[t][n]) * exp2f(run);
+          run += lw[i];
+          sm.I[t][n] = run;
+          lw[i] = run;  // I, for khat below
+        }
+#pragma unroll
+        for (int i = 0; i < kSub; ++i) {
+          const int t = kSub * sb + i;
+          sm.khat[t][n] = to_float(raw.k[t][n]) * exp2f(run - lw[i]);
+        }
+        float tot[kNSub];
+#pragma unroll
+        for (int b = 0; b < kNSub; ++b)
+          tot[b] = __shfl_sync(0xffffffffu, run, b, kNSub);  // lane b of the four
+        float before = 0.f, after = 0.f, all = 0.f;
+#pragma unroll
+        for (int b = 0; b < kNSub; ++b) {
+          all += tot[b];
+          if (b < sb) before += tot[b];
+          if (b > sb) after += tot[b];
+        }
+        sm.gR[sb][n] = exp2f(before);
+        sm.gK[sb][n] = exp2f(after);
+        if (sb == 0) sm.gC[n] = exp2f(all);
+#pragma unroll
+        for (int a = 0; a < kNSub; ++a) {
+          float between = 0.f;
+#pragma unroll
+          for (int b = 0; b < kNSub; ++b)
+            if (b > a && b < sb) between += tot[b];
+          sm.mid[a][sb][n] = a < sb ? exp2f(between) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int it = 0; it < kChunk * kChunk / kThreads; ++it) {
+        const int i = tid + it * kThreads, t = i / kChunk, s = i % kChunk;
+        if (s > t) sm.A[t][s] = 0.f;  // the upper triangle of A
+      }
+    }
+    __syncthreads();
+
+    // (2) A, rows t, columns s <= t. Blocks between
+    // sub-chunks a < b on the tensor cores, four 16 x 8 tiles (rows 16 mt..,
+    // columns: sub-chunk a), one per warp 0-3:
+    //   A[t][s] = sum_n (rhat[t][n] mid[a][b(t)][n]) khat[s][n]
+    // where mid = 0 leaves the rows with b(t) <= a to the pairs below.
+    if (warp < 4) {
+      const int mt = warp == 0 ? 0 : 1, a = warp == 0 ? 0 : warp - 1;
+      const int t0 = 16 * mt, s0c = kSub * a;
+      float acc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
+      tile_mma<N / 8, 1, false>(
+          acc,
+          [&](int i, int n) {
+            return sm.rhat[t0 + i][n] * sm.mid[a][(t0 + i) / kSub][n];
+          },
+          [&](int n, int j) { return sm.khat[s0c + j][n]; });
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = t0 + g + 8 * half;
+        if (t / kSub > a) {
+          sm.A[t][s0c + 2 * q] = acc[0][2 * half];
+          sm.A[t][s0c + 2 * q + 1] = acc[0][2 * half + 1];
+        }
+      }
+    }
+    // Diagonal blocks pair by pair, each exponent P[t] - P[s+1] = E[t] - I[s]
+    // <= 0. A
+    // half-warp owns rows t1 = L sb + p and t2 = L sb + L-1 - p of one
+    // sub-chunk (9 pairs, bonuses included), lane c of it the channels
+    // c, c + 16, ...; p is the same across the warp, so the loop bounds are.
+    {
+      const int p = warp % 4, sb = 2 * (warp / 4) + lane / 16, c = lane % 16;
+      const int t1 = kSub * sb + p, t2 = kSub * sb + kSub - 1 - p;
+      float acc1[kSub], acc2[kSub];
+#pragma unroll
+      for (int s_ = 0; s_ < kSub; ++s_) acc1[s_] = acc2[s_] = 0.f;
+#pragma unroll
+      for (int n = c; n < N; n += 16) {
+        const float r1 = to_float(raw.r[t1][n]), p1 = sm.E[t1][n];
+        const float r2 = to_float(raw.r[t2][n]), p2 = sm.E[t2][n];
+        const float un = sm.u[n];
+#pragma unroll
+        for (int s_ = 0; s_ < kSub; ++s_) {
+          const float ks = to_float(raw.k[kSub * sb + s_][n]);
+          const float ps = sm.I[kSub * sb + s_][n];
+          if (s_ < p) acc1[s_] += r1 * ks * exp2f(p1 - ps);
+          if (s_ == p) acc1[s_] += r1 * un * ks;
+          if (s_ < kSub - 1 - p) acc2[s_] += r2 * ks * exp2f(p2 - ps);
+          if (s_ == kSub - 1 - p) acc2[s_] += r2 * un * ks;
+        }
+      }
+#pragma unroll
+      for (int s_ = 0; s_ < kSub; ++s_) {
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1) {
+          acc1[s_] += __shfl_xor_sync(0xffffffffu, acc1[s_], off);
+          acc2[s_] += __shfl_xor_sync(0xffffffffu, acc2[s_], off);
+        }
+        if (c == 0 && s_ <= p) sm.A[t1][kSub * sb + s_] = acc1[s_];
+        if (c == 0 && s_ <= kSub - 1 - p) sm.A[t2][kSub * sb + s_] = acc2[s_];
+      }
+    }
+    __syncthreads();
+
+    // (4) o = A v + (r 2^{P}) S_in: each warp task 16 steps x 8 kONT columns
+    for (int task = warp; task < kOTasks; task += kWarps) {
+      const int mt = task / ((N / 8) / kONT);
+      const int t0 = 16 * mt, j0 = 8 * kONT * (task % ((N / 8) / kONT));
+      float acc[kONT][4] = {};
+      tile_mma<kChunk / 8, kONT, kExactV>(
+          acc, [&](int i, int s) { return sm.A[t0 + i][s]; },
+          [&](int s, int j) { return to_float(raw.v[s][j0 + j]); });
+      tile_mma<N / 8, kONT, false>(
+          acc,
+          [&](int i, int n) {
+            return sm.rhat[t0 + i][n] * sm.gR[(t0 + i) / kSub][n];
+          },
+          [&](int n, int j) { return sm.S[n][j0 + j]; });
+#pragma unroll
+      for (int nt = 0; nt < kONT; ++nt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t = t0 + g + 8 * half;
+          if (t < valid) {
+            T* dst = o + base + (size_t)(c * kChunk + t) * row_stride + j0 +
+                     8 * nt + 2 * q;
+            dst[0] = from_float<T>(acc[nt][2 * half]);
+            dst[1] = from_float<T>(acc[nt][2 * half + 1]);
+          }
+        }
+      }
+    }
+
+    // (5) S_out = diag(2^{P[C]}) S_in + sum_s (k_s 2^{P[C] - P[s+1]})^T v_s,
+    // in the registers of the owning warp
+    if (s_owner) {
+      float acc[kSNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kSNT; ++nt) {
+        const float d0 = sm.gC[s_n0 + g], d1 = sm.gC[s_n0 + g + 8];
+        acc[nt][0] = d0 * Sreg[nt][0];
+        acc[nt][1] = d0 * Sreg[nt][1];
+        acc[nt][2] = d1 * Sreg[nt][2];
+        acc[nt][3] = d1 * Sreg[nt][3];
+      }
+      tile_mma<kChunk / 8, kSNT, kExactV>(
+          acc,
+          [&](int n, int s) {
+            return sm.khat[s][s_n0 + n] * sm.gK[s / kSub][s_n0 + n];
+          },
+          [&](int s, int j) { return to_float(raw.v[s][s_j0 + j]); });
+#pragma unroll
+      for (int nt = 0; nt < kSNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) Sreg[nt][e] = acc[nt][e];
+    }
+    __syncthreads();  // every read of S_in is done
+    if (s_owner) {
+#pragma unroll
+      for (int nt = 0; nt < kSNT; ++nt) {
+        const int n = s_n0 + g, j = s_j0 + 8 * nt + 2 * q;
+        sm.S[n][j] = Sreg[nt][0];
+        sm.S[n][j + 1] = Sreg[nt][1];
+        sm.S[n + 8][j] = Sreg[nt][2];
+        sm.S[n + 8][j + 1] = Sreg[nt][3];
+      }
+    }
+  }
+
+  if (s_owner) {
+#pragma unroll
+    for (int nt = 0; nt < kSNT; ++nt) {
+      const int n = s_n0 + g, j = s_j0 + 8 * nt + 2 * q;
+      s_T[sbase + n * N + j] = Sreg[nt][0];
+      s_T[sbase + n * N + j + 1] = Sreg[nt][1];
+      s_T[sbase + (n + 8) * N + j] = Sreg[nt][2];
+      s_T[sbase + (n + 8) * N + j + 1] = Sreg[nt][3];
+    }
+  }
+}
+
 template <typename T, int N>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const float* w, const float* u, const float* s0, void* o,
                    float* s_T, int B, int steps, int H, cudaStream_t stream) {
   const dim3 grid(H, B);
+  if constexpr (N >= 16) {
+    if (steps >= kChunk) {
+      const size_t smem = sizeof(Smem<T, N>);
+      cudaError_t err = cudaFuncSetAttribute(
+          wkv6_chunked<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return err;
+      wkv6_chunked<T, N><<<grid, kThreads, smem, stream>>>(
+          static_cast<const T*>(r), static_cast<const T*>(k),
+          static_cast<const T*>(v), w, u, s0, static_cast<T*>(o), s_T, steps,
+          H);
+      return cudaGetLastError();
+    }
+  }
   wkv6_kernel<T, N><<<grid, N, 0, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), w, u, s0, static_cast<T*>(o), s_T, steps, H);
@@ -144,8 +584,9 @@ cudaError_t dispatch(const void* r, const void* k, const void* v,
 }  // namespace
 
 // dtype (of r, k, v, o): 0 = float32, 1 = bfloat16; w, u, s0, s_T are fp32.
-// s0 may be NULL (zeros). Returns a cudaError_t (0 on success); the caller
-// raises on anything else.
+// s0 may be NULL (zeros). Launches the chunked kernel when T >= 32 and
+// N >= 16, else the recurrent one. Returns a cudaError_t (0 on success);
+// the caller raises on anything else.
 extern "C" int repro_wkv6_fwd(const void* r, const void* k, const void* v,
                               const void* w, const void* u, const void* s0,
                               void* o, void* s_T, int B, int T, int H, int N,

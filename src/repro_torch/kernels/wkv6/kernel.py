@@ -2,10 +2,13 @@
 
 Counterpart of ``repro/kernels/wkv6/kernel.py::wkv6`` (the Pallas TPU
 kernel). The CUDA C++ source is ``csrc/wkv6.cu``, built by ``nvcc`` for
-``sm_90a`` at first use (``repro_torch.kernels.load``). This wrapper
-checks what the kernel takes, allocates the outputs, launches on
-PyTorch's current stream and raises if the launch is refused. It takes
-CUDA tensors only: the CPU goes through ``ref.py`` (see ``ops.mix``).
+``sm_90a`` at first use (``repro_torch.kernels.load``). Its entry point
+launches one of two kernels per call: the chunked form on the tensor
+cores when T >= ``CHUNK`` and N >= 16 (prefill), the recurrent one
+otherwise (a decode step, T = 1). This wrapper checks what the kernel
+takes, allocates the outputs, launches on PyTorch's current stream and
+raises if the launch is refused. It takes CUDA tensors only: the CPU goes
+through ``ref.py`` (see ``ops.mix``).
 
 ``launches`` counts the kernel's launches in this process; callers that
 want to show a path went through the kernel set it to 0 and read it.
@@ -22,6 +25,7 @@ from repro_torch import kernels
 SOURCE = Path(__file__).parent / "csrc" / "wkv6.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (8, 16, 32, 64)
+CHUNK = 32  # steps per chunk of the chunked kernel (csrc/wkv6.cu, kChunk)
 
 launches = 0
 
@@ -36,6 +40,11 @@ def library() -> ctypes.CDLL:
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def chunked(T: int, N: int) -> bool:
+    """True when a call of this T and N runs the chunked kernel."""
+    return T >= CHUNK and N >= 16
 
 
 def wkv6(r, k, v, w, u, s0=None):
@@ -55,8 +64,9 @@ def wkv6(r, k, v, w, u, s0=None):
             raise ValueError(f"wkv6 kernel: {name} is on {t.device}; the "
                              "kernel takes CUDA tensors on one device (CPU "
                              "tensors go through ops.mix)")
-        if not t.is_contiguous():
-            raise ValueError(f"wkv6 kernel: {name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"wkv6 kernel: {name} must be contiguous and "
+                             "16-byte aligned (cp.async)")
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
         raise ValueError(f"wkv6 kernel: r, k, v must share one dtype of "
                          f"float32, bfloat16; got {r.dtype}, {k.dtype}, "

@@ -31,3 +31,70 @@ def wkv6_ref(r, k, v, w, u, s0=None):
         o[:, t] = torch.einsum("bhn,bhnm->bhm", rf[:, t], s + uf * kv)
         s = wf[:, t, :, :, None] * s + kv
     return o.to(r.dtype), s
+
+
+def wkv6_chunked_ref(r, k, v, w, u, s0=None, *, chunk: int = 32,
+                     sub: int = 16):
+    """The same function in the chunked form of ``csrc/wkv6.cu``'s
+    ``wkv6_chunked``, in plain PyTorch: it localises a fault of that
+    kernel (its math against this, this against ``wkv6_ref``). Off the
+    serving path.
+
+    Per chunk of ``chunk`` steps, with P[t] = sum_{i<t} log2 w_i inside the
+    chunk (P[0] = 0, all powers of 2):
+
+        o_t = (r_t 2^{P[t]}) S_in + sum_{s<t} A[t,s] v_s + (r_t u k_t) v_t
+        A[t,s] = sum_n r_t k_s 2^{P[t] - P[s+1]}
+        S_out = diag(2^{P[C]}) S_in + sum_s (k_s 2^{P[C] - P[s+1]})^T v_s
+
+    Every power has an exponent <= 0. A block of A between sub-chunks
+    a < b is factored as (r_t 2^{P[t] - P[L b]}) (2^{P[L b] - P[L(a+1)]})
+    (k_s 2^{P[L(a+1)] - P[s+1]}); a diagonal block is summed pair by pair.
+    The naive split r_t 2^{P[t]} times k_s 2^{-P[s+1]} would overflow
+    once -P passes 128. The ragged last chunk is padded with r = k = v = 0
+    and w = 1. Same arguments and returns as ``wkv6_ref``."""
+    B, T, H, N = r.shape
+    assert chunk % sub == 0
+    L, n_sub = sub, chunk // sub
+    dev = r.device
+    # (B, H, T, N) fp32
+    rf, kf, vf, wf = (t.float().transpose(1, 2) for t in (r, k, v, w))
+    uf = u.float()[None, :, None, :]
+    s = (torch.zeros((B, H, N, N), dtype=torch.float32, device=dev)
+         if s0 is None else s0.float().clone())
+    o = torch.empty((B, H, T, N), dtype=torch.float32, device=dev)
+    tt = torch.arange(L, device=dev)
+    lower = (tt[None, :] < tt[:, None])[None, None, :, :, None]   # s < t
+    for c0 in range(0, T, chunk):
+        n = min(chunk, T - c0)
+        pad = (0, 0, 0, chunk - n)
+        rc, kc, vc = (torch.nn.functional.pad(x[:, :, c0:c0 + n], pad)
+                      for x in (rf, kf, vf))
+        lw = torch.nn.functional.pad(torch.log2(wf[:, :, c0:c0 + n]), pad)
+        P = torch.cat([torch.zeros_like(lw[:, :, :1]), lw.cumsum(2)], 2)
+        blk = torch.arange(chunk, device=dev) // L
+        rhat = rc * torch.exp2(P[:, :, :chunk] - P[:, :, L * blk])
+        khat = kc * torch.exp2(P[:, :, L * (blk + 1)] - P[:, :, 1:])
+        A = torch.zeros((B, H, chunk, chunk), dtype=torch.float32,
+                        device=dev)
+        for b in range(n_sub):
+            rows = slice(L * b, L * (b + 1))
+            for a in range(b):
+                cols = slice(L * a, L * (a + 1))
+                mid = torch.exp2(P[:, :, L * b] - P[:, :, L * (a + 1)])
+                A[:, :, rows, cols] = torch.einsum(
+                    "bhtn,bhsn->bhts", rhat[:, :, rows] * mid[:, :, None],
+                    khat[:, :, cols])
+            e = P[:, :, rows, None, :] - P[:, :, None, L * b + 1:L * (b + 1) + 1, :]
+            e = torch.where(lower, e, torch.full_like(e, -float("inf")))
+            A[:, :, rows, rows] = torch.einsum(
+                "bhtn,bhsn,bhtsn->bhts", rc[:, :, rows], kc[:, :, rows],
+                torch.exp2(e))
+            A[:, :, rows, rows] += torch.diag_embed(
+                (rc[:, :, rows] * uf * kc[:, :, rows]).sum(-1))
+        oc = A @ vc + (rc * torch.exp2(P[:, :, :chunk])) @ s
+        o[:, :, c0:c0 + n] = oc[:, :, :n]
+        kdec = kc * torch.exp2(P[:, :, chunk:] - P[:, :, 1:])
+        s = torch.exp2(P[:, :, chunk])[..., None] * s \
+            + kdec.transpose(2, 3) @ vc
+    return o.transpose(1, 2).to(r.dtype), s

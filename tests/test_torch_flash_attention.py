@@ -93,3 +93,76 @@ def test_cpu_takes_plain_version_even_when_kernel_asked():
     b = ops.attend(q, k, v, use_kernel=False)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert kernel.launches == 0
+
+
+# The CUDA route calls the kernel on the model's layout, unpadded and with
+# no kv_len (the kernel masks the ragged tile itself). Ragged S (80, 130,
+# 500 against the default 128 blocks) with the window and soft-cap cases of
+# FLASH_CASES: (B, S, H, KV, Dh, causal, window, cap, dtype)
+UNPADDED_CASES = [
+    (1, S, 2, 1, Dh, causal, window, cap, dt)
+    for S in (80, 130, 500)
+    for (Dh, causal, window, cap) in ((32, True, 64, 0.0), (32, True, 0, 50.0),
+                                      (16, False, 0, 0.0))
+    for dt in ("float32", "bfloat16")
+]
+
+
+@pytest.mark.parametrize("case", UNPADDED_CASES, ids=str)
+def test_unpadded_ref_matches_padded_pallas_interpret(case):
+    B, S, H, KV, Dh, causal, window, cap, dt = case
+    q, k, v = _inputs(case, seed=2)
+    jo = jops.attend(*(jnp.asarray(a).astype(dt) for a in (q, k, v)),
+                     causal=causal, window=window, cap=cap, use_pallas=True)
+    to = tref(*(torch.from_numpy(np.ascontiguousarray(
+        np.transpose(a, (0, 2, 1, 3)))).to(getattr(torch, dt))
+        for a in (q, k, v)), causal=causal, window=window, cap=cap,
+        kv_len=None)
+    tol = _tol(dt)
+    np.testing.assert_allclose(to.transpose(1, 2).float().numpy(),
+                               np.asarray(jo, np.float32), atol=tol, rtol=tol)
+
+
+def test_kernel_route_passes_model_layout_views_unpadded(monkeypatch):
+    """On the kernel route ``ops.attend`` hands the caller's tensors to the
+    kernel as they are (no pad, transpose or copy) and returns its output
+    as is, so the model's ``out.flatten(-2)`` is a view."""
+    seen = {}
+
+    def fake_kernel(q, k, v, *, causal, window, cap):
+        seen.update(q=q, k=k, v=v, window=window, cap=cap)
+        ot = tref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  causal=causal, window=window, cap=cap)
+        return ot.transpose(1, 2).contiguous()
+
+    monkeypatch.setattr(ops, "use_kernel_for", lambda x, use: use)
+    monkeypatch.setattr(kernel, "flash_attention", fake_kernel)
+    qkv = torch.randn(2, 130, 4 + 2 * 2, 32, dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    out = ops.attend(q, k, v, causal=True, window=64, cap=30.0)
+    assert seen["q"] is q and seen["k"] is k and seen["v"] is v
+    assert (seen["window"], seen["cap"]) == (64, 30.0)
+    assert out.shape == (2, 130, 4, 32) and out.is_contiguous()
+    flat = out.flatten(-2)
+    assert flat.data_ptr() == out.data_ptr() and flat._base is out
+    ref = ops.attend(q, k, v, causal=True, window=64, cap=30.0,
+                     use_kernel=False)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("dh", [8, 48, 96])
+def test_kernel_refuses_bf16_head_dims_it_has_no_form_for(dh, monkeypatch):
+    """The tensor-core kernel takes bf16 Dh in {16, 32, 64, 128, 256}; any
+    other bf16 Dh raises before the library is touched (the device check
+    is stubbed so the test runs on the CPU)."""
+    q = torch.zeros(1, 64, 2, dh, dtype=torch.bfloat16)
+    k = torch.zeros(1, 64, 1, dh, dtype=torch.bfloat16)
+
+    class FakeDevice:
+        type = "cuda"
+
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda t: FakeDevice))
+    monkeypatch.setattr(kernel, "library", lambda: pytest.fail("launched"))
+    with pytest.raises(ValueError, match="head dim"):
+        kernel.flash_attention(q, k, k)
+    assert kernel.launches == 0
