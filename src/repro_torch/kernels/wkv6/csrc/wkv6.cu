@@ -48,11 +48,12 @@
 // second buffer while this chunk computes. The state stays on chip, in the
 // registers of the warps that update it and in shared memory for the
 // (r 2^{P}) S_in product. One block per (b, h), 8 warps, four barriers a
-// chunk: 256 blocks, two resident per SM in bf16. Splitting a (b, h) over
-// blocks by state columns would repeat A in each. It runs in 0.18 ms at the
-// prefill shape (PERF.md, PR 13): the chunk's phases are short and
-// barrier-separated, so latency and shared-memory traffic, not the bound,
-// set the pace.
+// chunk; in the last phase warps 0-3 compute the outputs while warps 4-7
+// update the state. 256 blocks, two resident per SM in bf16. Splitting a
+// (b, h) over blocks by state columns would repeat A in each. It runs in
+// 0.16 ms at the prefill shape (PERF.md, PR 13): the chunk's phases are
+// short and barrier-separated, so latency and shared-memory traffic, not
+// the bound, set the pace.
 //
 // T < 32 (decode's T = 1 included) or N = 8: the recurrent kernel,
 // `wkv6_kernel`, unchanged: 62 % of its bound at T = 1 (PR 12). One block
@@ -202,6 +203,14 @@ __device__ __forceinline__ void tile_mma(float (&c)[NT][4], FA a_at, FB b_at) {
     for (int e = 0; e < 4; ++e) c[nt][e] += d[nt][e];
 }
 
+// 2^x for x <= 0 by the SFU alone (relative error ~2^-22; results below
+// 2^-126, negligible beside the terms they multiply, flush to zero).
+__device__ __forceinline__ float pow2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -248,16 +257,16 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
   extern __shared__ __align__(16) uint8_t smem_raw[];
   SM& sm = *reinterpret_cast<SM*>(smem_raw);
   constexpr bool kExactV = sizeof(T) == 2;   // bf16 v is exact in TF32
-  // output tiles (16 steps x 8 columns): kONT per warp task, sharing rows
-  constexpr int kONT = N >= 32 ? N / 32 : 1;
-  constexpr int kOTasks = (kChunk / 16) * (N / 8) / kONT;
-  // state tiles (16 channels x 8 columns): kSNT per warp, sharing rows; a
-  // warp keeps its tiles of the state in registers from chunk to chunk
-  constexpr int kSTiles = (N / 16) * (N / 8);
-  constexpr int kSNT = kSTiles > kWarps ? kSTiles / kWarps : 1;
-  constexpr int kSTasks = kSTiles / kSNT;
-  static_assert(kSTasks <= kWarps && kChunk == 32 && kSub == 8,
-                "layout: a half-warp per diagonal row pair");
+  // Warps 0-3 compute the output, warps 4-7 update the state, at once.
+  // Output: warp w the 16 steps 16 (w / 2).., columns kONT * 8 (w % 2)..,
+  // kONT 16 x 8 tiles sharing their A fragments.
+  constexpr int kONT = N / 16;
+  // State: warp 4 + i the channels 16 i.. and every column, kSNT tiles it
+  // keeps in registers from chunk to chunk.
+  constexpr int kSNT = N / 8;
+  constexpr int kSTasks = N / 16;
+  static_assert(kChunk == 32 && kSub == 8 && kWarps == 8,
+                "layout: a half-warp per diagonal row pair, 4 + 4 warps");
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -304,10 +313,9 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
 
   load_chunk(0, 0);
 
-  // this warp's state tiles: rows s_n0 .. s_n0 + 15, columns s_j0 .. + 8 kSNT
-  const bool s_owner = warp < kSTasks;
-  const int s_n0 = 16 * (warp / ((N / 8) / kSNT));
-  const int s_j0 = 8 * kSNT * (warp % ((N / 8) / kSNT));
+  // this warp's state tiles: rows s_n0 .. s_n0 + 15, every column
+  const bool s_owner = warp >= 4 && warp - 4 < kSTasks;
+  const int s_n0 = 16 * (warp - 4), s_j0 = 0;
   float Sreg[kSNT][4];
 #pragma unroll
   for (int nt = 0; nt < kSNT; ++nt) {
@@ -356,7 +364,7 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
         for (int i = 0; i < kSub; ++i) {
           const int t = kSub * sb + i;
           sm.E[t][n] = run;
-          sm.rhat[t][n] = to_float(raw.r[t][n]) * exp2f(run);
+          sm.rhat[t][n] = to_float(raw.r[t][n]) * pow2(run);
           run += lw[i];
           sm.I[t][n] = run;
           lw[i] = run;  // I, for khat below
@@ -364,7 +372,7 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < kSub; ++i) {
           const int t = kSub * sb + i;
-          sm.khat[t][n] = to_float(raw.k[t][n]) * exp2f(run - lw[i]);
+          sm.khat[t][n] = to_float(raw.k[t][n]) * pow2(run - lw[i]);
         }
         float tot[kNSub];
 #pragma unroll
@@ -377,16 +385,16 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
           if (b < sb) before += tot[b];
           if (b > sb) after += tot[b];
         }
-        sm.gR[sb][n] = exp2f(before);
-        sm.gK[sb][n] = exp2f(after);
-        if (sb == 0) sm.gC[n] = exp2f(all);
+        sm.gR[sb][n] = pow2(before);
+        sm.gK[sb][n] = pow2(after);
+        if (sb == 0) sm.gC[n] = pow2(all);
 #pragma unroll
         for (int a = 0; a < kNSub; ++a) {
           float between = 0.f;
 #pragma unroll
           for (int b = 0; b < kNSub; ++b)
             if (b > a && b < sb) between += tot[b];
-          sm.mid[a][sb][n] = a < sb ? exp2f(between) : 0.f;
+          sm.mid[a][sb][n] = a < sb ? pow2(between) : 0.f;
         }
       }
 #pragma unroll
@@ -441,9 +449,9 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
         for (int s_ = 0; s_ < kSub; ++s_) {
           const float ks = to_float(raw.k[kSub * sb + s_][n]);
           const float ps = sm.I[kSub * sb + s_][n];
-          if (s_ < p) acc1[s_] += r1 * ks * exp2f(p1 - ps);
+          if (s_ < p) acc1[s_] += r1 * ks * pow2(p1 - ps);
           if (s_ == p) acc1[s_] += r1 * un * ks;
-          if (s_ < kSub - 1 - p) acc2[s_] += r2 * ks * exp2f(p2 - ps);
+          if (s_ < kSub - 1 - p) acc2[s_] += r2 * ks * pow2(p2 - ps);
           if (s_ == kSub - 1 - p) acc2[s_] += r2 * un * ks;
         }
       }
@@ -460,10 +468,10 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // (4) o = A v + (r 2^{P}) S_in: each warp task 16 steps x 8 kONT columns
-    for (int task = warp; task < kOTasks; task += kWarps) {
-      const int mt = task / ((N / 8) / kONT);
-      const int t0 = 16 * mt, j0 = 8 * kONT * (task % ((N / 8) / kONT));
+    // (4) o = A v + (r 2^{P}) S_in, by warps 0-3
+    if (warp < 4) {
+      const int mt = warp / 2;
+      const int t0 = 16 * mt, j0 = 8 * kONT * (warp % 2);
       float acc[kONT][4] = {};
       tile_mma<kChunk / 8, kONT, kExactV>(
           acc, [&](int i, int s) { return sm.A[t0 + i][s]; },
@@ -490,7 +498,7 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
     }
 
     // (5) S_out = diag(2^{P[C]}) S_in + sum_s (k_s 2^{P[C] - P[s+1]})^T v_s,
-    // in the registers of the owning warp
+    // in the registers of the owning warp (4-7), beside (4)
     if (s_owner) {
       float acc[kSNT][4];
 #pragma unroll

@@ -55,9 +55,8 @@ def wkv6_variants() -> dict:
                                 "    // Diagonal blocks pair by pair"),
         "no_diagonal_pairs": cut(src, "    // Diagonal blocks pair by pair",
                                  "    __syncthreads();\n\n    // (4)"),
-        "no_output": cut(src, "    for (int task = warp; task < kOTasks;",
-                         "    // (5) S_out"),
-        "no_state_update": cut(src, "    if (s_owner) {\n      float acc[kSNT][4];",
+        "no_output": cut(src, "    // (4) o = A v", "    // (5) S_out"),
+        "no_state_update": cut(src, "    // (5) S_out",
                                "    __syncthreads();  // every read of S_in"),
         "loads_and_barriers_only": cut(src, "    // (1) Thread (n, b)",
                                        "    __syncthreads();  // every read of S_in"),
