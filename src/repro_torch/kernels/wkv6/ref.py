@@ -34,7 +34,7 @@ def wkv6_ref(r, k, v, w, u, s0=None):
 
 
 def wkv6_chunked_ref(r, k, v, w, u, s0=None, *, chunk: int = 32,
-                     sub: int = 16):
+                     sub: int = 8):
     """The same function in the chunked form of ``csrc/wkv6.cu``'s
     ``wkv6_chunked``, in plain PyTorch: it localises a fault of that
     kernel (its math against this, this against ``wkv6_ref``). Off the
@@ -54,7 +54,8 @@ def wkv6_chunked_ref(r, k, v, w, u, s0=None, *, chunk: int = 32,
     once -P passes 128. The ragged last chunk is padded with r = k = v = 0
     and w = 1. Same arguments and returns as ``wkv6_ref``."""
     B, T, H, N = r.shape
-    assert chunk % sub == 0
+    if chunk % sub:
+        raise ValueError(f"chunk {chunk} is not a multiple of sub {sub}")
     L, n_sub = sub, chunk // sub
     dev = r.device
     # (B, H, T, N) fp32
