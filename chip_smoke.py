@@ -14,7 +14,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    and at the shapes the main paths give it; flash attention also on
    strided views in the model's layout (ragged S, window, soft-cap, every
    bf16 head dim), wkv6 also around its chunk length and with fast decay
-   (w down to 1e-4), and the chunked wkv6 against its plain chunked form;
+   (w down to 1e-4, and w = 0), and the chunked wkv6 against its plain
+   chunked form;
 4. the main paths, each through ``repro_torch.launch.serve.main`` at full
    width and full depth with random weights from seed 0, 4 prompts of 500
    tokens, 32 generated: StarCoder2-3B (flash attention in 30 layers),
@@ -130,8 +131,10 @@ WKV_REL_TOL = 1e-5
 # kernel, C and C + 1 the chunked one) and at the prefill length, in both
 # dtypes, with the reference's w in (0.49, 0.99) and with fast decay, w
 # uniform in (1e-4, 0.999): there a chunked form that split
-# 2^{P[t] - P[s]} into 2^{P[t]} 2^{-P[s]} would overflow. Held at the
-# WKV_REL_TOL measure in fp32 (the reason above) and at 5e-2 in bf16
+# 2^{P[t] - P[s]} into 2^{P[t]} 2^{-P[s]} would overflow; and that with a
+# tenth of the w exactly 0 (the model's exp(-exp(d)) rounds to 0 once d
+# passes ~4.6), where log2 w = -inf. Held at the WKV_REL_TOL measure in
+# fp32 (the reason above) and at 5e-2 in bf16
 WKV_EDGE = [(2, T, 4, 64, dt) for T in (31, 32, 33, 500)
             for dt in (torch.float32, torch.bfloat16)]
 
@@ -281,16 +284,19 @@ def lru_inputs(case, gen):
     return a.to(dt), b.to(dt), h0
 
 
-def wkv_inputs(case, gen, fast_decay: bool = False):
+def wkv_inputs(case, gen, decay: str = "reference"):
     """r, k, v = N(0,1) in the case's dtype; w in (0.49, 0.99), u and s0
-    0.1 N(0,1), fp32 (the reference's test distribution). ``fast_decay``:
-    w uniform in (1e-4, 0.999) instead."""
+    0.1 N(0,1), fp32 (the reference's test distribution). ``decay="fast"``:
+    w uniform in (1e-4, 0.999) instead; ``"zero"``: that, with a tenth of
+    the w exactly 0."""
     B, T, H, N, dt = case
     r, k, v = (torch.randn((B, T, H, N), generator=gen, device="cuda").to(dt)
                for _ in range(3))
-    if fast_decay:
+    if decay in ("fast", "zero"):
         w = 1e-4 + (0.999 - 1e-4) * torch.rand((B, T, H, N), generator=gen,
                                                device="cuda")
+        if decay == "zero":
+            w[torch.rand(w.shape, generator=gen, device="cuda") < 0.1] = 0.0
     else:
         w = 0.5 * torch.sigmoid(torch.randn((B, T, H, N), generator=gen,
                                             device="cuda")) + 0.49
@@ -455,17 +461,17 @@ def _wkv_cases(gen) -> float:
     torch.cuda.synchronize()
     cases.append(_rel_case(WKV_MAIN32, out, ref))
     for case in WKV_EDGE:
-        for fast in (False, True):
-            r, k, v, w, u, s0 = wkv_inputs(case, gen, fast_decay=fast)
+        for decay in ("reference", "fast", "zero"):
+            r, k, v, w, u, s0 = wkv_inputs(case, gen, decay)
             out = wkv_ops.mix(r, k, v, w, u, s0, use_kernel=True)
             ref = wkv_ops.mix(r, k, v, w, u, s0, use_kernel=False)
             torch.cuda.synchronize()
             if case[4] == torch.float32:
-                cases.append(_rel_case(case, out, ref, fast_decay=fast))
+                cases.append(_rel_case(case, out, ref, decay=decay))
             else:
                 cases.append(_scan_case("wkv6", case[:4], case[4], out, ref,
                                         True))
-                cases[-1]["fast_decay"] = fast
+                cases[-1]["decay"] = decay
     # the chunked kernel against the same math in plain PyTorch, at the
     # prefill shape: a fault here is in the kernel, not in the chunked form
     for case in (WKV_MAIN, WKV_MAIN32):

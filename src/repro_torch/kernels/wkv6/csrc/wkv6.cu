@@ -18,9 +18,11 @@
 // on the tensor cores the bound is the bytes, 31.9 us. In decode (T = 1) it
 // is the state: s0 in and S_T out, 8.4 MB -> 2.6 us.
 //
-// Two kernels; the entry point launches exactly one per call, by T.
+// Two kernels; the entry point launches exactly one per call, the one its
+// caller names (the binding's rule: the chunked one when T >= 32 and
+// N >= 16).
 //
-// T >= 32 and N >= 16: the chunked form, `wkv6_chunked`. The recurrent
+// Prefill: the chunked form, `wkv6_chunked`. The recurrent
 // kernel below walks T dependent steps, each a barrier and a 64-term FMA
 // chain, and its latency set its pace: 0.366 ms at the prefill shape, 9.2x
 // the CUDA-core bound (NVIDIA H100 80GB HBM3, 700 W; PERF.md, PR 12). Here a
@@ -40,6 +42,10 @@
 // diagonal block is summed pair by pair with 2^{P[t] - P[s+1]} <= 1; the
 // inter-chunk factors have exponents <= 0. The sums of log2 w are kept per
 // sub-chunk, so the exponents inside one are differences of small numbers.
+// A step with w = 0 (the model's w = exp(-exp(d)) is 0 in fp32 once d
+// passes ~4.6) restarts those sums, and a product across it is set to 0 by
+// its position: log2 0 = -inf would make the differences NaN, and a large
+// finite stand-in would cost every later exponent its low bits.
 // Four products run on the tensor cores as mma.sync m16n8k8 TF32 with the
 // 3xTF32 split (a = a_hi + a_lo, both rounded; a_lo b_hi + a_hi b_lo +
 // a_hi b_hi), so they keep fp32 accuracy (a bf16 v is exact in TF32 and
@@ -51,7 +57,8 @@
 // chunk; in the last phase warps 0-3 compute the outputs while warps 4-7
 // update the state. 256 blocks, two resident per SM in bf16. Splitting a
 // (b, h) over blocks by state columns would repeat A in each. It runs in
-// 0.16 ms at the prefill shape (PERF.md, PR 13): the chunk's phases are
+// 0.166 ms at the prefill shape (0.157 before steps with w = 0 were
+// handled; PERF.md, PR 13): the chunk's phases are
 // short and barrier-separated, so latency and shared-memory traffic, not
 // the bound, set the pace.
 //
@@ -140,6 +147,9 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
 constexpr int kChunk = 32;         // C: steps per chunk
 constexpr int kSub = 8;            // L: steps per sub-chunk
 constexpr int kNSub = kChunk / kSub;
+// log2 of a sub-chunk's decay when one of its steps has w = 0: 2^x is 0 in
+// fp32 (and in ex2.approx.ftz) far above it, and sums of it stay finite
+constexpr float kLog2Zero = -200.f;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 
@@ -233,9 +243,10 @@ struct Smem {
     float w[kChunk][kRaw];
   };
   Raw raw[2];
-  float E[kChunk][kP];          // sum of log2 w from the sub-chunk's start to t - 1
+  float E[kChunk][kP];          // sum of log2 w to t - 1, from the sub-chunk's
+                                // start or its last step with w = 0
   float I[kChunk][kP];          // ... to t
-  float rhat[kChunk][kRow];     // r_t 2^{E[t]} = r_t 2^{P[t] - P[L b(t)]}
+  float rhat[kChunk][kRow];     // r_t 2^{P[t] - P[L b(t)]} (0 past a w = 0)
   float khat[kChunk][kRow];     // k_s 2^{P[L (b(s) + 1)] - P[s + 1]}
   float A[kChunk][kA];          // intra-chunk A, bonus on the diagonal
   float S[N][kS];               // S_in
@@ -244,6 +255,7 @@ struct Smem {
   float mid[kNSub][kNSub][N];   // [a][b]: 2^{P[L b] - P[L (a + 1)]} for a < b, else 0
   float gC[N];                  // 2^{P[C]}
   float u[N];
+  uint8_t zmask[kNSub][N];      // bit i: step i of sub-chunk b has w = 0
 };
 
 // grid (H, B), kThreads; layouts as wkv6_kernel.
@@ -353,31 +365,46 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
       static_assert(kThreads == kNSub * 64, "four lanes per channel, N <= 64");
       const int n = tid / kNSub, sb = tid % kNSub;
       if (n < N) {  // warp-uniform: N is a multiple of 8
+        // A step with w = 0 sets the state to k^T v: a product across it
+        // is 0. E and I restart at 0 after such a step, so they stay small
+        // and exact, and a product across one is set to 0 by its position
+        // (zmask below) instead of by a huge exponent.
         float lw[kSub];
+        unsigned zmask = 0;  // bit i: step i of the sub-chunk has w = 0
 #pragma unroll
         for (int i = 0; i < kSub; ++i) {
           const int t = kSub * sb + i;
-          lw[i] = t < valid ? log2f(raw.w[t][n]) : 0.f;  // padded steps: w = 1
+          const float wt = t < valid ? raw.w[t][n] : 1.f;  // padded: w = 1
+          if (wt == 0.f) zmask |= 1u << i;
+          lw[i] = wt == 0.f ? 0.f : log2f(wt);
         }
         float run = 0.f;
 #pragma unroll
         for (int i = 0; i < kSub; ++i) {
           const int t = kSub * sb + i;
           sm.E[t][n] = run;
-          sm.rhat[t][n] = to_float(raw.r[t][n]) * pow2(run);
-          run += lw[i];
+          const bool cut = zmask & ((1u << i) - 1u);  // w = 0 before t
+          sm.rhat[t][n] = cut ? 0.f : to_float(raw.r[t][n]) * pow2(run);
+          run = zmask >> i & 1u ? 0.f : run + lw[i];
           sm.I[t][n] = run;
           lw[i] = run;  // I, for khat below
         }
+        // the last step with w = 0, or -1: khat of an earlier step is 0
+        const int last_zero = 31 - __clz(zmask);
 #pragma unroll
         for (int i = 0; i < kSub; ++i) {
           const int t = kSub * sb + i;
-          sm.khat[t][n] = to_float(raw.k[t][n]) * pow2(run - lw[i]);
+          sm.khat[t][n] =
+              i >= last_zero ? to_float(raw.k[t][n]) * pow2(run - lw[i]) : 0.f;
         }
+        sm.zmask[sb][n] = static_cast<uint8_t>(zmask);
+        // a sub-chunk with a w = 0 step has total kLog2Zero: the totals are
+        // only ever added, so each power over a sum that holds it is 0
+        const float total = zmask ? kLog2Zero : run;
         float tot[kNSub];
 #pragma unroll
         for (int b = 0; b < kNSub; ++b)
-          tot[b] = __shfl_sync(0xffffffffu, run, b, kNSub);  // lane b of the four
+          tot[b] = __shfl_sync(0xffffffffu, total, b, kNSub);  // lane b of the four
         float before = 0.f, after = 0.f, all = 0.f;
 #pragma unroll
         for (int b = 0; b < kNSub; ++b) {
@@ -445,13 +472,20 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
         const float r1 = to_float(raw.r[t1][n]), p1 = sm.E[t1][n];
         const float r2 = to_float(raw.r[t2][n]), p2 = sm.E[t2][n];
         const float un = sm.u[n];
+        // the last step before t1 (t2) with w = 0, or -1: a pair with an
+        // earlier s spans it, and its power is 2^kLog2Zero = 0
+        const unsigned zm = sm.zmask[sb][n];
+        const int z1 = 31 - __clz(zm & ((1u << p) - 1u));
+        const int z2 = 31 - __clz(zm & ((1u << (kSub - 1 - p)) - 1u));
 #pragma unroll
         for (int s_ = 0; s_ < kSub; ++s_) {
           const float ks = to_float(raw.k[kSub * sb + s_][n]);
           const float ps = sm.I[kSub * sb + s_][n];
-          if (s_ < p) acc1[s_] += r1 * ks * pow2(p1 - ps);
+          if (s_ < p)
+            acc1[s_] += r1 * ks * pow2(s_ >= z1 ? p1 - ps : kLog2Zero);
           if (s_ == p) acc1[s_] += r1 * un * ks;
-          if (s_ < kSub - 1 - p) acc2[s_] += r2 * ks * pow2(p2 - ps);
+          if (s_ < kSub - 1 - p)
+            acc2[s_] += r2 * ks * pow2(s_ >= z2 ? p2 - ps : kLog2Zero);
           if (s_ == kSub - 1 - p) acc2[s_] += r2 * un * ks;
         }
       }
@@ -548,10 +582,11 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
 template <typename T, int N>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const float* w, const float* u, const float* s0, void* o,
-                   float* s_T, int B, int steps, int H, cudaStream_t stream) {
+                   float* s_T, int B, int steps, int H, bool chunked,
+                   cudaStream_t stream) {
   const dim3 grid(H, B);
   if constexpr (N >= 16) {
-    if (steps >= kChunk) {
+    if (chunked) {
       const size_t smem = sizeof(Smem<T, N>);
       cudaError_t err = cudaFuncSetAttribute(
           wkv6_chunked<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -564,6 +599,7 @@ cudaError_t launch(const void* r, const void* k, const void* v,
       return cudaGetLastError();
     }
   }
+  if (chunked) return cudaErrorInvalidValue;  // no chunked form at N = 8
   wkv6_kernel<T, N><<<grid, N, 0, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), w, u, s0, static_cast<T*>(o), s_T, steps, H);
@@ -574,16 +610,20 @@ template <typename T>
 cudaError_t dispatch(const void* r, const void* k, const void* v,
                      const float* w, const float* u, const float* s0, void* o,
                      float* s_T, int B, int steps, int H, int N,
-                     cudaStream_t stream) {
+                     bool chunked, cudaStream_t stream) {
   switch (N) {
     case 8:
-      return launch<T, 8>(r, k, v, w, u, s0, o, s_T, B, steps, H, stream);
+      return launch<T, 8>(r, k, v, w, u, s0, o, s_T, B, steps, H, chunked,
+                            stream);
     case 16:
-      return launch<T, 16>(r, k, v, w, u, s0, o, s_T, B, steps, H, stream);
+      return launch<T, 16>(r, k, v, w, u, s0, o, s_T, B, steps, H, chunked,
+                            stream);
     case 32:
-      return launch<T, 32>(r, k, v, w, u, s0, o, s_T, B, steps, H, stream);
+      return launch<T, 32>(r, k, v, w, u, s0, o, s_T, B, steps, H, chunked,
+                            stream);
     case 64:
-      return launch<T, 64>(r, k, v, w, u, s0, o, s_T, B, steps, H, stream);
+      return launch<T, 64>(r, k, v, w, u, s0, o, s_T, B, steps, H, chunked,
+                            stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -592,13 +632,14 @@ cudaError_t dispatch(const void* r, const void* k, const void* v,
 }  // namespace
 
 // dtype (of r, k, v, o): 0 = float32, 1 = bfloat16; w, u, s0, s_T are fp32.
-// s0 may be NULL (zeros). Launches the chunked kernel when T >= 32 and
-// N >= 16, else the recurrent one. Returns a cudaError_t (0 on success);
-// the caller raises on anything else.
+// s0 may be NULL (zeros). chunked != 0 launches the chunked kernel (N >= 16),
+// else the recurrent one: the caller picks (repro_torch.kernels.wkv6.kernel,
+// `chunked`). Returns a cudaError_t (0 on success); the caller raises on
+// anything else.
 extern "C" int repro_wkv6_fwd(const void* r, const void* k, const void* v,
                               const void* w, const void* u, const void* s0,
                               void* o, void* s_T, int B, int T, int H, int N,
-                              int dtype, void* stream) {
+                              int dtype, int chunked, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -607,11 +648,19 @@ extern "C" int repro_wkv6_fwd(const void* r, const void* k, const void* v,
   const float* sf = static_cast<const float*>(s0);
   float* so = static_cast<float*>(s_T);
   if (dtype == 0)
-    return (int)dispatch<float>(r, k, v, wf, uf, sf, o, so, B, T, H, N, st);
+    return (int)dispatch<float>(r, k, v, wf, uf, sf, o, so, B, T, H, N,
+                                chunked != 0, st);
   if (dtype == 1)
     return (int)dispatch<__nv_bfloat16>(r, k, v, wf, uf, sf, o, so, B, T, H,
-                                        N, st);
+                                        N, chunked != 0, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The chunked kernel's steps per chunk and per sub-chunk, which the binding
+// and the plain chunked form (ref.py) take as theirs.
+extern "C" void repro_wkv6_chunk_shape(int* chunk, int* sub) {
+  *chunk = kChunk;
+  *sub = kSub;
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

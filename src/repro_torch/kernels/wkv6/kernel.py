@@ -3,9 +3,9 @@
 Counterpart of ``repro/kernels/wkv6/kernel.py::wkv6`` (the Pallas TPU
 kernel). The CUDA C++ source is ``csrc/wkv6.cu``, built by ``nvcc`` for
 ``sm_90a`` at first use (``repro_torch.kernels.load``). Its entry point
-launches one of two kernels per call: the chunked form on the tensor
-cores when T >= ``CHUNK`` and N >= 16 (prefill), the recurrent one
-otherwise (a decode step, T = 1). This wrapper checks what the kernel
+launches one of two kernels per call, the one ``chunked`` picks: the
+chunked form on the tensor cores (prefill), or the recurrent one (a
+decode step, T = 1). This wrapper checks what the kernel
 takes, allocates the outputs, launches on PyTorch's current stream and
 raises if the launch is refused. It takes CUDA tensors only: the CPU goes
 through ``ref.py`` (see ``ops.mix``).
@@ -16,6 +16,7 @@ want to show a path went through the kernel set it to 0 and read it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -25,18 +26,27 @@ from repro_torch import kernels
 SOURCE = Path(__file__).parent / "csrc" / "wkv6.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (8, 16, 32, 64)
-CHUNK = 32  # steps per chunk of the chunked kernel (csrc/wkv6.cu, kChunk)
+# steps per chunk and per sub-chunk of the chunked kernel (csrc/wkv6.cu,
+# kChunk and kSub; ``library`` checks them)
+CHUNK, SUB = 32, 8
 
 launches = 0
 
 
+@functools.cache
 def library() -> ctypes.CDLL:
     lib = kernels.load("wkv6", SOURCE)
     fn = lib.repro_wkv6_fwd
-    # (r, k, v, w, u, s0 or NULL, o, s_T, B, T, H, N, dtype, stream)
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    # (r, k, v, w, u, s0 or NULL, o, s_T, B, T, H, N, dtype, chunked, stream)
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    chunk, sub = ctypes.c_int(), ctypes.c_int()
+    lib.repro_wkv6_chunk_shape(ctypes.byref(chunk), ctypes.byref(sub))
+    if (chunk.value, sub.value) != (CHUNK, SUB):
+        raise RuntimeError(f"wkv6 kernel: chunk {chunk.value}, sub-chunk "
+                           f"{sub.value} in csrc/wkv6.cu, but {CHUNK}, {SUB} "
+                           "here (kernel.CHUNK, SUB)")
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -93,7 +103,7 @@ def wkv6(r, k, v, w, u, s0=None):
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), None if s0 is None else s0.data_ptr(),
             o.data_ptr(), s_T.data_ptr(), B, T, H, N, _DTYPES[r.dtype],
-            stream)
+            int(chunked(T, N)), stream)
     if err:
         raise RuntimeError("wkv6 kernel launch failed: "
                            f"{lib.repro_cuda_error_string(err).decode()} "

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.wkv6.kernel import CHUNK, SUB
+
 
 def wkv6_ref(r, k, v, w, u, s0=None):
     B, T, H, N = r.shape
@@ -33,30 +35,30 @@ def wkv6_ref(r, k, v, w, u, s0=None):
     return o.to(r.dtype), s
 
 
-def wkv6_chunked_ref(r, k, v, w, u, s0=None, *, chunk: int = 32,
-                     sub: int = 8):
+def wkv6_chunked_ref(r, k, v, w, u, s0=None):
     """The same function in the chunked form of ``csrc/wkv6.cu``'s
     ``wkv6_chunked``, in plain PyTorch: it localises a fault of that
     kernel (its math against this, this against ``wkv6_ref``). Off the
     serving path.
 
-    Per chunk of ``chunk`` steps, with P[t] = sum_{i<t} log2 w_i inside the
-    chunk (P[0] = 0, all powers of 2):
+    Per chunk of C = ``CHUNK`` steps, with P[t] = sum_{i<t} log2 w_i inside
+    the chunk (P[0] = 0, all powers of 2):
 
         o_t = (r_t 2^{P[t]}) S_in + sum_{s<t} A[t,s] v_s + (r_t u k_t) v_t
         A[t,s] = sum_n r_t k_s 2^{P[t] - P[s+1]}
         S_out = diag(2^{P[C]}) S_in + sum_s (k_s 2^{P[C] - P[s+1]})^T v_s
 
     Every power has an exponent <= 0. A block of A between sub-chunks
-    a < b is factored as (r_t 2^{P[t] - P[L b]}) (2^{P[L b] - P[L(a+1)]})
-    (k_s 2^{P[L(a+1)] - P[s+1]}); a diagonal block is summed pair by pair.
-    The naive split r_t 2^{P[t]} times k_s 2^{-P[s+1]} would overflow
-    once -P passes 128. The ragged last chunk is padded with r = k = v = 0
-    and w = 1. Same arguments and returns as ``wkv6_ref``."""
+    a < b of L = ``SUB`` steps is factored as (r_t 2^{P[t] - P[L b]})
+    (2^{P[L b] - P[L(a+1)]}) (k_s 2^{P[L(a+1)] - P[s+1]}); a diagonal
+    block is summed pair by pair. The naive split r_t 2^{P[t]} times
+    k_s 2^{-P[s+1]} would overflow once -P passes 128. A step with w = 0
+    adds nothing to P and a power across it is 0, as the kernel does: a
+    huge log2 w in P would cost every later exponent its low bits. The
+    ragged last chunk is padded with r = k = v = 0 and w = 1. Same
+    arguments and returns as ``wkv6_ref``."""
     B, T, H, N = r.shape
-    if chunk % sub:
-        raise ValueError(f"chunk {chunk} is not a multiple of sub {sub}")
-    L, n_sub = sub, chunk // sub
+    C, L = CHUNK, SUB
     dev = r.device
     # (B, H, T, N) fp32
     rf, kf, vf, wf = (t.float().transpose(1, 2) for t in (r, k, v, w))
@@ -66,36 +68,46 @@ def wkv6_chunked_ref(r, k, v, w, u, s0=None, *, chunk: int = 32,
     o = torch.empty((B, H, T, N), dtype=torch.float32, device=dev)
     tt = torch.arange(L, device=dev)
     lower = (tt[None, :] < tt[:, None])[None, None, :, :, None]   # s < t
-    for c0 in range(0, T, chunk):
-        n = min(chunk, T - c0)
-        pad = (0, 0, 0, chunk - n)
+    blk = torch.arange(C, device=dev) // L
+    for c0 in range(0, T, C):
+        n = min(C, T - c0)
+        pad = (0, 0, 0, C - n)
         rc, kc, vc = (torch.nn.functional.pad(x[:, :, c0:c0 + n], pad)
                       for x in (rf, kf, vf))
-        lw = torch.nn.functional.pad(torch.log2(wf[:, :, c0:c0 + n]), pad)
+        wc = wf[:, :, c0:c0 + n]
+        lw = torch.nn.functional.pad(
+            torch.log2(torch.where(wc == 0, 1.0, wc)), pad)
+        # P as above over the steps with w > 0; Z[t]: steps before t with w = 0
         P = torch.cat([torch.zeros_like(lw[:, :, :1]), lw.cumsum(2)], 2)
-        blk = torch.arange(chunk, device=dev) // L
-        rhat = rc * torch.exp2(P[:, :, :chunk] - P[:, :, L * blk])
-        khat = kc * torch.exp2(P[:, :, L * (blk + 1)] - P[:, :, 1:])
-        A = torch.zeros((B, H, chunk, chunk), dtype=torch.float32,
-                        device=dev)
-        for b in range(n_sub):
+        Z = torch.nn.functional.pad((wc == 0).int().cumsum(2), (0, 0, 1, C - n))
+        Z[:, :, n + 1:] = Z[:, :, n:n + 1]
+
+        def pow2(i, j):
+            """2^{P[i] - P[j]} for i >= j; 0 where a step with w = 0 lies
+            between (Z differs)."""
+            e = P[:, :, i] - P[:, :, j]
+            return torch.exp2(e.masked_fill(Z[:, :, i] != Z[:, :, j],
+                                            -float("inf")))
+
+        rhat = rc * pow2(slice(0, C), L * blk)
+        khat = kc * pow2(L * (blk + 1), slice(1, C + 1))
+        A = torch.zeros((B, H, C, C), dtype=torch.float32, device=dev)
+        for b in range(C // L):
             rows = slice(L * b, L * (b + 1))
             for a in range(b):
                 cols = slice(L * a, L * (a + 1))
-                mid = torch.exp2(P[:, :, L * b] - P[:, :, L * (a + 1)])
+                mid = pow2(L * b, L * (a + 1))
                 A[:, :, rows, cols] = torch.einsum(
                     "bhtn,bhsn->bhts", rhat[:, :, rows] * mid[:, :, None],
                     khat[:, :, cols])
-            e = P[:, :, rows, None, :] - P[:, :, None, L * b + 1:L * (b + 1) + 1, :]
-            e = torch.where(lower, e, torch.full_like(e, -float("inf")))
+            pairs = torch.where(lower, pow2((L * b + tt)[:, None],
+                                            (L * b + 1 + tt)[None, :]), 0.0)
             A[:, :, rows, rows] = torch.einsum(
-                "bhtn,bhsn,bhtsn->bhts", rc[:, :, rows], kc[:, :, rows],
-                torch.exp2(e))
+                "bhtn,bhsn,bhtsn->bhts", rc[:, :, rows], kc[:, :, rows], pairs)
             A[:, :, rows, rows] += torch.diag_embed(
                 (rc[:, :, rows] * uf * kc[:, :, rows]).sum(-1))
-        oc = A @ vc + (rc * torch.exp2(P[:, :, :chunk])) @ s
+        oc = A @ vc + (rc * pow2(slice(0, C), [0])) @ s
         o[:, :, c0:c0 + n] = oc[:, :, :n]
-        kdec = kc * torch.exp2(P[:, :, chunk:] - P[:, :, 1:])
-        s = torch.exp2(P[:, :, chunk])[..., None] * s \
-            + kdec.transpose(2, 3) @ vc
+        kdec = kc * pow2([C], slice(1, C + 1))
+        s = pow2(C, 0)[..., None] * s + kdec.transpose(2, 3) @ vc
     return o.transpose(1, 2).to(r.dtype), s

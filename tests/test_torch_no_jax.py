@@ -1,6 +1,5 @@
-"""The port stands alone: no module of ``repro_torch``, not
-``chip_smoke.py`` and no script under ``tools/`` imports ``jax``,
-``jaxlib`` or ``repro``; every module
+"""The port stands alone: no module of ``repro_torch`` and not
+``chip_smoke.py`` imports ``jax``, ``jaxlib`` or ``repro``; every module
 imports with jax made unimportable; entry points refuse to fall back to
 the CPU when CUDA is absent and the caller did not ask for ``cpu``."""
 import ast
@@ -18,8 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "tools").glob("*.py")))
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _modules():

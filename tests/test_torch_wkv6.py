@@ -102,10 +102,11 @@ def test_kernel_takes_cuda_tensors_only():
 CHUNKED_T = [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 130]
 
 
-def _fast_decay_inputs(B, T, H, N, dtype, seed):
+def _fast_decay_inputs(B, T, H, N, dtype, seed, zero_frac=0.0):
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, T, H, N)) for _ in range(3))
     w = rng.uniform(1e-4, 0.999, (B, T, H, N))
+    w[rng.random(w.shape) < zero_frac] = 0.0
     u = 0.1 * rng.standard_normal((H, N))
     s0 = 0.1 * rng.standard_normal((B, H, N, N))
     jx = [jnp.asarray(x, jnp.float32).astype(dtype) for x in (r, k, v)]
@@ -156,8 +157,25 @@ def test_naive_factorisation_overflows_where_chunked_ref_does_not():
     naive = (rf * torch.exp2(P[:, :, :-1])) @ (
         kf * torch.exp2(-P[:, :, 1:])).transpose(2, 3)
     assert not torch.isfinite(naive).all()
-    _check_rel(wkv6_chunked_ref(r, k, v, w, u, s0, chunk=128),
+    _check_rel(wkv6_chunked_ref(r, k, v, w, u, s0),
                jmix(jr, jk, jv, jw, ju, js0, use_pallas=True), "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [33, 65, 130])
+def test_chunked_ref_with_zero_decay(T, dtype):
+    """w = 0 (the model's exp(-exp(d)) rounds to it once d passes ~4.6):
+    log2 w = -inf, so a power across such a step must come out 0, not
+    nan, and the exponents after it must keep their low bits (held at the
+    same 1e-5 of max|o|). A tenth of the w are 0."""
+    (jr, jk, jv, jw, ju, js0), (r, k, v, w, u, s0) = _fast_decay_inputs(
+        1, T, 2, 16, dtype, seed=T, zero_frac=0.1)
+    assert (w == 0).any()
+    if T <= 128:
+        ref = jmix(jr, jk, jv, jw, ju, js0, use_pallas=True)
+    else:
+        ref = jref(jr, jk, jv, jw, ju, js0)
+    _check_rel(wkv6_chunked_ref(r, k, v, w, u, s0), ref, dtype)
 
 
 def test_chunk_choice_follows_t_and_n():
