@@ -57,7 +57,7 @@
 // chunk; in the last phase warps 0-3 compute the outputs while warps 4-7
 // update the state. 256 blocks, two resident per SM in bf16. Splitting a
 // (b, h) over blocks by state columns would repeat A in each. It runs in
-// 0.166 ms at the prefill shape (0.157 before steps with w = 0 were
+// 0.164-0.167 ms at the prefill shape (0.157 before steps with w = 0 were
 // handled; PERF.md, PR 13): the chunk's phases are
 // short and barrier-separated, so latency and shared-memory traffic, not
 // the bound, set the pace.
