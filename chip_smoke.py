@@ -7,15 +7,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 1. the card: nvidia-smi name and power limit, torch and CUDA versions;
 2. the build: every hand-written kernel of the serving paths
    (flash_attention, lru_scan, wkv6), one nvcc per source, all started
-   together, with each compiler report (registers, spills) and the count
-   of tensor-core instructions (HGMMA, HMMA) in each library's SASS;
+   together, with each compiler report (registers, spills), the count
+   of tensor-core instructions (HGMMA, HMMA) in each library's SASS and
+   of TMA loads (UTMALDG) in lru_scan's;
 3. each kernel against its plain PyTorch version on the card, at the
    reference test cases, at shapes off the TPU kernels' block multiples
    and at the shapes the main paths give it; flash attention also on
    strided views in the model's layout (ragged S, window, soft-cap, every
    bf16 head dim), wkv6 also around its chunk length and with fast decay
    (w down to 1e-4, and w = 0), and the chunked wkv6 against its plain
-   chunked form;
+   chunked form; lru_scan bit for bit (``torch.equal``) on both of its
+   kernels, the TMA ring and the per-thread one, each case printing the
+   route it took;
 4. the main paths, each through ``repro_torch.launch.serve.main`` at full
    width and full depth with random weights from seed 0, 4 prompts of 500
    tokens, 32 generated: StarCoder2-3B (flash attention in 30 layers),
@@ -31,7 +34,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    CPU run of the same weights. Each model is freed before the next;
 5. times, beside the card's name and power limit: prefill, decode, and
    each kernel's time against its bound, its plain version and the
-   library call that computes the same function, where one exists. A
+   library call that computes the same function, where one exists
+   (lru_scan: both kernels, in turns, with their GB/s). A
    bound counts the operations at the rate of the units that run them
    (bf16 or TF32 tensor cores, fp32 CUDA cores); wkv6's CUDA-core reading
    is printed beside its tensor-core one. Each profile window also prints
@@ -108,6 +112,20 @@ LRU_CASES = [
     (3, 300, 600, torch.bfloat16),
 ]
 LRU_MAIN = (4, 500, 4096, torch.float32)
+# the route each of these must take (kernel.use_tma): ragged tiles on the
+# TMA kernel (S not a multiple of its 32 steps, D not of its 128 channels),
+# and rows that are not a multiple of 16 bytes (45 * 4, 4100 * 2) on the
+# per-thread kernel
+LRU_ROUTES = {
+    (2, 33, 200, torch.float32): "tma",
+    (1, 500, 4104, torch.bfloat16): "tma",
+    (2, 50, 45, torch.float32): "per-thread",
+    (1, 500, 4100, torch.bfloat16): "per-thread",
+    LRU_MAIN: "tma",
+}
+# a and b of different dtypes (y takes a's), on the TMA kernel
+LRU_MIXED = [(2, 70, 136, torch.float32, torch.bfloat16),
+             (2, 70, 136, torch.bfloat16, torch.float32)]
 
 # (B, T, H, N, dtype): the reference's WKV_CASES, T off the chunk, T=1,
 # and the RWKV-6 prefill and decode shapes (w always fp32)
@@ -188,8 +206,10 @@ def kernel_modules() -> dict:
 
 
 def zero_launches() -> None:
-    for mod in kernel_modules().values():
+    mods = kernel_modules()
+    for mod in mods.values():
         mod.launches = 0
+    mods["lru_scan"].tma_launches = 0
 
 
 def read_launches() -> dict:
@@ -276,12 +296,13 @@ def flash_inputs(case, gen, fused: bool = False):
 
 
 def lru_inputs(case, gen):
-    """a = sigmoid(N(0,1)), b = N(0,1) in the case's dtype; h0 fp32."""
-    B, S, D, dt = case
+    """a = sigmoid(N(0,1)), b = N(0,1) in the case's dtype (a fifth entry,
+    where there is one, is b's); h0 fp32."""
+    B, S, D, dt, *b_dt = case
     a = torch.sigmoid(torch.randn((B, S, D), generator=gen, device="cuda"))
     b = torch.randn((B, S, D), generator=gen, device="cuda")
     h0 = torch.randn((B, D), generator=gen, device="cuda")
-    return a.to(dt), b.to(dt), h0
+    return a.to(dt), b.to(b_dt[0] if b_dt else dt), h0
 
 
 def wkv_inputs(case, gen, decay: str = "reference"):
@@ -337,18 +358,25 @@ def phase_build() -> None:
         if log.exists():
             print(log.read_text().strip())
     for name, _, path in built:
-        n = tensor_core_instructions(path)
+        n = sass_count(path, "HGMMA|HMMA")
         print(f"sass: {path.name}: {n} tensor-core instructions "
               "(cuobjdump -sass | grep -cE 'HGMMA|HMMA')")
         if name in TENSOR_CORE_KERNELS:
             check(n > 0, f"{name}: no HGMMA/HMMA in its SASS")
+        if name == "lru_scan":
+            n = sass_count(path, "UTMALDG")
+            print(f"sass: {path.name}: {n} TMA loads (cuobjdump -sass | "
+                  "grep -c UTMALDG)")
+            check(n > 0, "lru_scan: no UTMALDG in its SASS")
 
 
-def tensor_core_instructions(lib: Path) -> int:
+def sass_count(lib: Path, opcodes: str) -> int:
+    """Lines of the library's SASS that hold one of ``opcodes`` (a regex
+    alternation of whole instruction names)."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    return len(re.findall(r"^.*\b(HGMMA|HMMA)\b.*$", sass, re.M))
+    return len(re.findall(rf"^.*\b({opcodes})\b.*$", sass, re.M))
 
 
 def _report(name: str, cases: list) -> None:
@@ -425,21 +453,49 @@ def _scan_case(name, shape, dt, out, ref, with_init) -> dict:
 
 
 def _lru_cases(gen) -> float:
+    """Every case through ``ops.scan`` (the route ``kernel.use_tma``
+    picks) and the main shape on both kernels, forced; each held against
+    the plain version at SCAN_TOL and bit for bit, with and without h0."""
+    from repro_torch.kernels.lru_scan import kernel as lru_kernel
     from repro_torch.kernels.lru_scan import ops as lru_ops
-    cases = []
-    for case in LRU_CASES + [LRU_MAIN]:
+    cases, main_err = [], 0.0
+    runs = [(case, None) for case in LRU_CASES + list(LRU_ROUTES) + LRU_MIXED]
+    runs += [(LRU_MAIN, "per-thread")]
+    for case, force in runs:
         a, b, h0 = lru_inputs(case, gen)
+        route = force or ("tma" if lru_kernel.use_tma(
+            a.dtype, b.dtype, a.shape[2], a.data_ptr(), b.data_ptr())
+            else "per-thread")
+        if case in LRU_ROUTES and force is None:
+            check(route == LRU_ROUTES[case],
+                  f"lru_scan {case} took {route}, not {LRU_ROUTES[case]}")
         for init in (h0, None):
-            out = lru_ops.scan(a, b, init, use_kernel=True)
+            before = lru_kernel.tma_launches
+            if force is None:
+                out = lru_ops.scan(a, b, init, use_kernel=True)
+            else:
+                out = lru_kernel.lru_scan(a, b, init, tma=force == "tma")
             ref = lru_ops.scan(a, b, init, use_kernel=False)
             torch.cuda.synchronize()
-            cases.append(_scan_case("lru_scan", case[:3], case[3], out, ref,
-                                    init is not None))
+            check(lru_kernel.tma_launches - before == (route == "tma"),
+                  f"lru_scan {case}: the launch did not take {route}")
+            row = _scan_case("lru_scan", case[:3], case[3], out, ref,
+                             init is not None)
+            row.update(b_dtype=str(b.dtype), route=route,
+                       bit_equal=all(torch.equal(o, r)
+                                     for o, r in zip(out, ref)))
+            cases.append(row)
+            print(f"lru_scan {list(case[:3])} a {a.dtype} b {b.dtype} "
+                  f"h0 {init is not None}: route {route}, bit-equal to the "
+                  f"plain version {row['bit_equal']}")
+            check(row["bit_equal"], f"lru_scan not bit-equal: {row}")
             check(out[0].dtype == a.dtype and out[1].dtype == torch.float32
                   and torch.equal(out[1], out[0][:, -1].float()),
                   f"lru_scan h_last is y[:, -1] widened, {case}")
+            if case == LRU_MAIN:
+                main_err = max(main_err, row["max_abs_err"])
     _report("lru_scan", cases)
-    return max(c["max_abs_err"] for c in cases[-2:])
+    return main_err
 
 
 def _wkv_cases(gen) -> float:
@@ -531,11 +587,17 @@ def phase_serve(arch: str) -> dict:
     zero_launches()
     res = serve.main(argv)
     launches = read_launches()
+    # every lru_scan launch of the run took the TMA kernel
+    lru_tma = kernel_modules()["lru_scan"].tma_launches
+    check(lru_tma == launches["lru_scan"],
+          f"{arch}: {lru_tma} of {launches['lru_scan']} lru_scan launches "
+          "took the TMA kernel")
     cfg = res.cfg
     B, S = res.prompts.shape
     print(f"main path: {cfg.name} n_layers={cfg.n_layers} "
           f"d_model={cfg.d_model} dtype={cfg.dtype}; launches in prefill + "
-          f"{GEN - 1} decode steps {launches}")
+          f"{GEN - 1} decode steps {launches} (lru_scan on the TMA kernel: "
+          f"{lru_tma})")
     _expect(launches, main_expect, f"{arch} serve.main")
     check(res.prefill_logits.shape == (B, cfg.vocab_size)
           and bool(torch.isfinite(res.prefill_logits).all()),
@@ -623,7 +685,8 @@ def phase_serve(arch: str) -> dict:
     check(err < 1e-4 and same, f"{arch} reduced model: card vs CPU")
     del small
     torch.cuda.empty_cache()
-    return {"launches": launches, "prefill_ms": prefill_ms, "tok_s": tok_s}
+    return {"launches": launches, "lru_scan_tma": lru_tma,
+            "prefill_ms": prefill_ms, "tok_s": tok_s}
 
 
 def wkv6_reordered(r, k, v, w, u, s0=None):
@@ -717,22 +780,47 @@ def flash_times(case) -> dict:
             "library_ms": library_ms, **b}
 
 
-def lru_times() -> dict:
+def lru_times() -> list:
+    """Both kernels at the main shape, forced through the binding's
+    ``tma`` argument and timed in turns (per-thread, TMA, TMA,
+    per-thread); each one's time is the mean of its two reads. The TMA
+    kernel's row first (the route the main path takes), the per-thread
+    one's second."""
     from repro_torch.kernels.lru_scan import kernel as lru_kernel
     from repro_torch.kernels.lru_scan.ref import lru_scan_ref
     B, S, D, dt = LRU_MAIN
     a, b, h0 = lru_inputs(LRU_MAIN,
                           torch.Generator(device="cuda").manual_seed(1))
-    ms = cuda_ms(lambda: lru_kernel.lru_scan(a, b, h0))
+    reads = {"tma": [], "per-thread": []}
+    for route in ("per-thread", "tma", "tma", "per-thread"):
+        reads[route].append(cuda_ms(lambda: lru_kernel.lru_scan(
+            a, b, h0, tma=route == "tma")))
     plain_ms = cuda_ms(lambda: lru_scan_ref(a, b, h0), iters=5, warmup=1)
+    # a yardstick of the rate this traffic gets, not the same function: an
+    # elementwise product that reads a and b and writes y
+    y = torch.empty_like(a)
+    mul_ms = cuda_ms(lambda: torch.mul(a, b, out=y))
     # a, b in; y out (a's size); h0 in, h_last out; 2 FLOP per element
     bd = bound(nbytes(a, b, a, h0, h0), 2 * B * S * D, torch.float32)
-    print(f"  lru_scan (B={B} S={S} D={D} {dt}, h0): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, library n/a (no single PyTorch call "
-          f"computes a linear recurrence); bound {bd['bound_ms']:.4f} ms "
-          f"({bd['bytes']} bytes, {bd['ops']} FLOP)")
-    return {"shape": [B, S, D], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, **bd}
+    print(f"  torch.mul(a, b, out=y) at (B={B} S={S} D={D}) {dt}, the same "
+          f"traffic but h0 and h_last: {mul_ms:.4f} ms, "
+          f"{nbytes(a, b, a) / (mul_ms * 1e-3) / 1e9:.1f} GB/s")
+    rows = []
+    for route in ("tma", "per-thread"):
+        ms = sum(reads[route]) / 2
+        gb_s = bd["bytes"] / (ms * 1e-3) / 1e9
+        print(f"  lru_scan (B={B} S={S} D={D} {dt}, h0), {route} kernel: "
+              f"{ms:.4f} ms (reads " + ", ".join(
+                  f"{x:.4f}" for x in reads[route]) + f"), {gb_s:.1f} GB/s "
+              f"= {100 * gb_s * 1e9 / HBM_BYTES_S:.1f}% of 3.35 TB/s; plain "
+              f"{plain_ms:.4f} ms, library n/a (no single PyTorch call "
+              f"computes a linear recurrence); bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bytes']} bytes, {bd['ops']} FLOP)")
+        rows.append({"shape": [B, S, D], "kernel": route, "ms": ms,
+                     "reads_ms": reads[route], "gb_s": gb_s,
+                     "same_traffic_mul_ms": mul_ms,
+                     "plain_ms": plain_ms, "library_ms": None, **bd})
+    return rows
 
 
 def wkv_times(case) -> dict:
@@ -771,9 +859,15 @@ def _entry(name: str, runs: dict, err: float, times: list) -> dict:
     by_path = {arch: run["launches"][name] for arch, run in runs.items()
                if run["launches"][name]}
     first = times[0]
+    extra = {}
+    if name == "lru_scan":
+        extra["launches_tma"] = sum(run["lru_scan_tma"] for run in runs.values())
+        extra.update({k: first[k] for k in ("kernel", "reads_ms", "gb_s",
+                                            "same_traffic_mul_ms")})
     return {"name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
+            **extra,
             "max_abs_err": err,
             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
@@ -798,7 +892,7 @@ def main() -> int:
         print(f"  {arch} decode tok/s, {BATCH} rows x {GEN - 1} steps "
               "(3 runs): " + ", ".join(f"{x:.1f}" for x in run["tok_s"]))
     times = {"flash_attention": [flash_times(MAIN), flash_times(RG_ATTN)],
-             "lru_scan": [lru_times()],
+             "lru_scan": lru_times(),
              "wkv6": [wkv_times(WKV_MAIN), wkv_times(WKV_DECODE)]}
     print(json.dumps({"kernels": [_entry(k, runs, errs[k], times[k])
                                   for k in SOURCES]}))

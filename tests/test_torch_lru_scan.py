@@ -7,7 +7,11 @@ multiple). Inputs are drawn with numpy from a seed and handed to both.
 
 Tolerance: 1e-5 (atol and rtol) in fp32, 5e-2 in bf16, as in
 ``tests/test_kernels.py``. ``h_last`` is the kernel's ``y[:, -1]`` widened
-to fp32; the oracle's is the unrounded state, one bf16 rounding away."""
+to fp32; the oracle's is the unrounded state, one bf16 rounding away.
+
+``kernel.use_tma``, the rule that sends a CUDA call to the TMA kernel or
+the per-thread one, is held on plain values (dtypes, D, base addresses)
+against a table written out here."""
 import numpy as np
 import pytest
 import torch
@@ -66,6 +70,8 @@ def test_scan_matches_pallas_interpret(case, with_h0):
     ((1, 300, 24), "float32"),     # S % 256 != 0
     ((2, 37, 600), "float32"),     # D % 512 != 0
     ((2, 300, 40), "bfloat16"),
+    ((2, 33, 520), "float32"),     # ragged for the TMA kernel's tile
+    ((1, 270, 136), "bfloat16"),   # (S % 32 != 0, D % 128 != 0) too
 ])
 def test_scan_matches_oracle_off_block_shapes(shape, dtype):
     (ja, jb, jh0), (ta, tb, th0) = _inputs(*shape, dtype, seed=1)
@@ -88,3 +94,35 @@ def test_kernel_takes_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.lru_scan(ta, tb, th0)
     assert kernel.launches == before
+
+
+# D -> the dtypes whose rows of D elements are a multiple of 16 bytes
+ROWS_OF_16_BYTES = {
+    45: set(),
+    48: {torch.float32, torch.bfloat16},
+    600: {torch.float32, torch.bfloat16},
+    4096: {torch.float32, torch.bfloat16},
+    4100: {torch.float32},         # 4100 * 2 = 8200 bytes
+}
+DTYPE_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("offset", [None, "a", "b"])
+@pytest.mark.parametrize("D", sorted(ROWS_OF_16_BYTES))
+@pytest.mark.parametrize("dtypes", DTYPE_PAIRS,
+                         ids=lambda p: f"{p[0]}-{p[1]}".replace("torch.", ""))
+def test_use_tma_takes_16_byte_rows_and_bases(dtypes, D, offset):
+    a_dt, b_dt = dtypes
+    base = 1 << 20
+    a_ptr = base + (a_dt.itemsize if offset == "a" else 0)
+    b_ptr = 2 * base + (b_dt.itemsize if offset == "b" else 0)
+    want = (offset is None and a_dt in ROWS_OF_16_BYTES[D]
+            and b_dt in ROWS_OF_16_BYTES[D])
+    assert kernel.use_tma(a_dt, b_dt, D, a_ptr, b_ptr) is want
+
+
+def test_use_tma_refuses_other_dtypes():
+    assert not kernel.use_tma(torch.float16, torch.float32, 4096, 0, 0)
+    assert not kernel.use_tma(torch.float32, torch.float64, 4096, 0, 0)
