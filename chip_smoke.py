@@ -17,8 +17,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    bf16 head dim), wkv6 also around its chunk length and with fast decay
    (w down to 1e-4, and w = 0), and the chunked wkv6 against its plain
    chunked form; lru_scan bit for bit (``torch.equal``) on both of its
-   kernels, the TMA ring and the per-thread one, each case printing the
-   route it took;
+   kernels, the TMA ring and the per-thread one (ragged tiles, and rows
+   and bases that TMA refuses), each case printing the route it took;
 4. the main paths, each through ``repro_torch.launch.serve.main`` at full
    width and full depth with random weights from seed 0, 4 prompts of 500
    tokens, 32 generated: StarCoder2-3B (flash attention in 30 layers),
@@ -126,6 +126,10 @@ LRU_ROUTES = {
 # a and b of different dtypes (y takes a's), on the TMA kernel
 LRU_MIXED = [(2, 70, 136, torch.float32, torch.bfloat16),
              (2, 70, 136, torch.bfloat16, torch.float32)]
+# contiguous a, b or both whose base lies one element into its buffer (a
+# 4-byte base: TMA refuses it), on the per-thread kernel
+LRU_SHIFTED = (1, 64, 4096, torch.float32)
+LRU_SHIFTS = ("a", "b", "ab")
 
 # (B, T, H, N, dtype): the reference's WKV_CASES, T off the chunk, T=1,
 # and the RWKV-6 prefill and decode shapes (w always fp32)
@@ -305,6 +309,15 @@ def lru_inputs(case, gen):
     return a.to(dt), b.to(b_dt[0] if b_dt else dt), h0
 
 
+def shifted(t):
+    """t's values in a contiguous view that starts one element into its
+    buffer."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def wkv_inputs(case, gen, decay: str = "reference"):
     """r, k, v = N(0,1) in the case's dtype; w in (0.49, 0.99), u and s0
     0.1 N(0,1), fp32 (the reference's test distribution). ``decay="fast"``:
@@ -459,16 +472,25 @@ def _lru_cases(gen) -> float:
     from repro_torch.kernels.lru_scan import kernel as lru_kernel
     from repro_torch.kernels.lru_scan import ops as lru_ops
     cases, main_err = [], 0.0
-    runs = [(case, None) for case in LRU_CASES + list(LRU_ROUTES) + LRU_MIXED]
-    runs += [(LRU_MAIN, "per-thread")]
-    for case, force in runs:
+    runs = [(case, None, "") for case in
+            LRU_CASES + list(LRU_ROUTES) + LRU_MIXED]
+    runs += [(LRU_SHIFTED, None, shift) for shift in LRU_SHIFTS]
+    runs += [(LRU_MAIN, "per-thread", "")]
+    for case, force, shift in runs:
         a, b, h0 = lru_inputs(case, gen)
+        if "a" in shift:
+            a = shifted(a)
+        if "b" in shift:
+            b = shifted(b)
         route = force or ("tma" if lru_kernel.use_tma(
             a.dtype, b.dtype, a.shape[2], a.data_ptr(), b.data_ptr())
             else "per-thread")
         if case in LRU_ROUTES and force is None:
             check(route == LRU_ROUTES[case],
                   f"lru_scan {case} took {route}, not {LRU_ROUTES[case]}")
+        if shift:
+            check(route == "per-thread",
+                  f"lru_scan {case} with {shift} shifted took {route}")
         for init in (h0, None):
             before = lru_kernel.tma_launches
             if force is None:
@@ -484,10 +506,15 @@ def _lru_cases(gen) -> float:
             row.update(b_dtype=str(b.dtype), route=route,
                        bit_equal=all(torch.equal(o, r)
                                      for o, r in zip(out, ref)))
+            if shift:
+                row["shifted"] = shift
             cases.append(row)
             print(f"lru_scan {list(case[:3])} a {a.dtype} b {b.dtype} "
-                  f"h0 {init is not None}: route {route}, bit-equal to the "
-                  f"plain version {row['bit_equal']}")
+                  f"h0 {init is not None}"
+                  + (f" ({shift} one element into its buffer)" if shift
+                     else "")
+                  + f": route {route}, bit-equal to the plain version "
+                  f"{row['bit_equal']}")
             check(row["bit_equal"], f"lru_scan not bit-equal: {row}")
             check(out[0].dtype == a.dtype and out[1].dtype == torch.float32
                   and torch.equal(out[1], out[0][:, -1].float()),

@@ -32,11 +32,10 @@
 // of [kSteps = 32 steps x 128 channels] tiles of a and of b in flight, into
 // a ring of kStages = 6 stages in shared memory (32 KB a stage in fp32), so
 // up to 160 KB an SM are in flight while the threads compute, several
-// times what Little's law asks. (Measured with tile_sweep.py: 2 to 6 stages,
-// 64 or 128 channels and 16 to 64 steps all ran within 2 % of each other,
-// 0.0358-0.0364 ms at the prefill shape, 6 stages the fastest; NVIDIA H100
-// 80GB HBM3, 700 W.) 128 consumer threads, one per channel, keep
-// h in a register and run the recurrence in time order, exactly as the
+// times what Little's law asks. (Other tile shapes, 2 to 8 stages, 64 or
+// 128 channels and 16 to 64 steps, measured within 2 % of this one; PERF.md
+// §6, NVIDIA H100 80GB HBM3, 700 W.) 128 consumer threads, one per channel,
+// keep h in a register and run the recurrence in time order, exactly as the
 // first kernel does; each writes y_t over a_t in the stage (y has a's
 // dtype), and the producer sends the tile back with a TMA store, then
 // reloads the stage once the store has read it. Nothing is reassociated,
@@ -61,6 +60,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -123,20 +124,9 @@ lru_scan_thread(const TA* __restrict__ a, const TB* __restrict__ b,
 }
 
 // ------------------------------------------------ the TMA kernel
-// The tile shape; tile_sweep.py builds the library with others (-D) to
-// time them against these.
-#ifndef LRU_TMA_CHANNELS
-#define LRU_TMA_CHANNELS 128
-#endif
-#ifndef LRU_TMA_STEPS
-#define LRU_TMA_STEPS 32
-#endif
-#ifndef LRU_TMA_STAGES
-#define LRU_TMA_STAGES 6
-#endif
-constexpr int kChannels = LRU_TMA_CHANNELS;  // per block = consumer threads
-constexpr int kSteps = LRU_TMA_STEPS;        // time steps per tile
-constexpr int kStages = LRU_TMA_STAGES;      // tiles of a and b in the ring
+constexpr int kChannels = 128;  // per block = consumer threads
+constexpr int kSteps = 32;      // time steps per tile
+constexpr int kStages = 6;      // tiles of a and b in the ring
 static_assert(kChannels % 32 == 0 && kChannels <= 256 && kSteps <= 256,
               "a TMA box side is at most 256 elements; whole warps");
 
@@ -325,61 +315,80 @@ constexpr CUtensorMapDataType map_dtype() {
                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
+// Errors of the TMA path's own, apart from cudaError_t's (which are >= 0).
+constexpr int kErrNoEncoder = -1;   // the driver has no cuTensorMapEncodeTiled
+constexpr int kErrMapRefused = -2;  // cuTensorMapEncodeTiled refused a map
+
 // 3-D map over (d, s, b) of a contiguous (B, S, D) tensor, box (kChannels,
 // kSteps, 1), no swizzle; out-of-range elements read as zeros and are not
-// written. Fails (false) where TMA cannot take the tensor: a base or row
-// stride that is not a multiple of 16 bytes.
+// written. Returns 0, or kErrNoEncoder / kErrMapRefused (the encoder refuses
+// a base or row stride that is not a multiple of 16 bytes).
 template <typename T>
-bool make_map(CUtensorMap* map, const void* base, int B, int S, int D) {
+int make_map(CUtensorMap* map, const void* base, int B, int S, int D) {
   const EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return false;
+  if (encode == nullptr) return kErrNoEncoder;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)D * sizeof(T),
                                  (cuuint64_t)S * D * sizeof(T)};
   const cuuint32_t box[3] = {kChannels, kSteps, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, map_dtype<T>(), 3, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const CUresult r = encode(
+      map, map_dtype<T>(), 3, const_cast<void*>(base), dims, strides, box,
+      elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrMapRefused;
+}
+
+// The ring needs more dynamic shared memory than the default 48 KB; the
+// limit is raised once per template instance and device (bit d of `raised`).
+template <typename TA, typename TB>
+cudaError_t allow_ring_smem() {
+  static std::atomic<uint64_t> raised{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
+  if (raised.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(lru_scan_tma<TA, TB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Ring<TA, TB>::kSmem);
+  if (err == cudaSuccess) raised.fetch_or(bit);
+  return err;
 }
 
 template <typename TA, typename TB>
-cudaError_t launch(const void* a, const void* b, const float* h0, void* y,
-                   float* h_last, int B, int S, int D, int use_tma,
-                   cudaStream_t stream) {
+int launch(const void* a, const void* b, const float* h0, void* y,
+           float* h_last, int B, int S, int D, int use_tma,
+           cudaStream_t stream) {
   if (!use_tma) {
     const dim3 grid((D + kThreads - 1) / kThreads, B);
     lru_scan_thread<TA, TB><<<grid, kThreads, 0, stream>>>(
         static_cast<const TA*>(a), static_cast<const TB*>(b), h0,
         static_cast<TA*>(y), h_last, S, D);
-    return cudaGetLastError();
+    return (int)cudaGetLastError();
   }
   CUtensorMap ma, mb, my;
-  if (!make_map<TA>(&ma, a, B, S, D) || !make_map<TB>(&mb, b, B, S, D) ||
-      !make_map<TA>(&my, y, B, S, D))
-    return cudaErrorInvalidValue;
-  const size_t smem = Ring<TA, TB>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(
-      lru_scan_tma<TA, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
+  int err = make_map<TA>(&ma, a, B, S, D);
+  if (err == 0) err = make_map<TB>(&mb, b, B, S, D);
+  if (err == 0) err = make_map<TA>(&my, y, B, S, D);
+  if (err == 0) err = (int)allow_ring_smem<TA, TB>();
+  if (err != 0) return err;
   const dim3 grid((D + kChannels - 1) / kChannels, B);
-  lru_scan_tma<TA, TB><<<grid, kChannels + 32, smem, stream>>>(
+  lru_scan_tma<TA, TB><<<grid, kChannels + 32, Ring<TA, TB>::kSmem, stream>>>(
       ma, mb, my, h0, h_last, S, D);
-  return cudaGetLastError();
+  return (int)cudaGetLastError();
 }
 
 template <typename TA>
-cudaError_t dispatch_b(const void* a, const void* b, const float* h0, void* y,
-                       float* h_last, int B, int S, int D, int b_dtype,
-                       int use_tma, cudaStream_t stream) {
+int dispatch_b(const void* a, const void* b, const float* h0, void* y,
+               float* h_last, int B, int S, int D, int b_dtype, int use_tma,
+               cudaStream_t stream) {
   if (b_dtype == 0)
     return launch<TA, float>(a, b, h0, y, h_last, B, S, D, use_tma, stream);
   if (b_dtype == 1)
     return launch<TA, __nv_bfloat16>(a, b, h0, y, h_last, B, S, D, use_tma,
                                      stream);
-  return cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -387,8 +396,9 @@ cudaError_t dispatch_b(const void* a, const void* b, const float* h0, void* y,
 // a, b, y: contiguous (B, S, D); h0, h_last: (B, D) fp32, h0 may be NULL
 // (zeros). a_dtype, b_dtype: 0 = float32, 1 = bfloat16 (y has a's). use_tma:
 // 1 runs the TMA kernel (16-byte aligned bases and row strides), 0 the
-// per-thread kernel (any shape). Returns a cudaError_t (0 on success); the
-// caller raises on anything else.
+// per-thread kernel (any shape). Returns 0 on success, else a cudaError_t or
+// one of the TMA path's negative codes; the caller raises with
+// repro_cuda_error_string's text.
 extern "C" int repro_lru_scan_fwd(const void* a, const void* b,
                                   const void* h0, void* y, void* h_last,
                                   int B, int S, int D, int a_dtype,
@@ -399,14 +409,17 @@ extern "C" int repro_lru_scan_fwd(const void* a, const void* b,
   const float* h0f = static_cast<const float*>(h0);
   float* hl = static_cast<float*>(h_last);
   if (a_dtype == 0)
-    return (int)dispatch_b<float>(a, b, h0f, y, hl, B, S, D, b_dtype, use_tma,
-                                  st);
+    return dispatch_b<float>(a, b, h0f, y, hl, B, S, D, b_dtype, use_tma, st);
   if (a_dtype == 1)
-    return (int)dispatch_b<__nv_bfloat16>(a, b, h0f, y, hl, B, S, D, b_dtype,
-                                          use_tma, st);
+    return dispatch_b<__nv_bfloat16>(a, b, h0f, y, hl, B, S, D, b_dtype,
+                                     use_tma, st);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {
+  if (err == kErrNoEncoder)
+    return "TMA: the CUDA driver offers no cuTensorMapEncodeTiled";
+  if (err == kErrMapRefused)
+    return "TMA: cuTensorMapEncodeTiled refused a tensor map of a, b or y";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -100,7 +100,7 @@ def lru_scan(a, b, h0=None, *, tma=None):
     if err:
         raise RuntimeError("lru_scan kernel launch failed: "
                            f"{lib.repro_cuda_error_string(err).decode()} "
-                           f"(cudaError_t {err})")
+                           f"(code {err})")
     launches += 1
     tma_launches += int(tma)
     return y, h_last
