@@ -39,7 +39,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    bound counts the operations at the rate of the units that run them
    (bf16 or TF32 tensor cores, fp32 CUDA cores); wkv6's CUDA-core reading
    is printed beside its tensor-core one. Each profile window also prints
-   the port's own kernels' share of the device time.
+   the port's own kernels' share of the device time;
+6. the training interval (``phase_train``): ``engine.make_runtime("mesh",
+   ...)`` built from the port's registries, learner and rollout halves on
+   two CUDA streams. On the goldens' configuration (catch, mlp, rmsprop,
+   alpha 4, n_envs 4, seed 3, 3 intervals) for a2c, ppo and vtrace the
+   card's reward/done streams equal the port's CPU run of the same params
+   and the params are within 1e-5; ``examples/specs/quickstart.json``
+   (read as JSON) runs twice on the card bit-identically, its host and
+   device env backends give equal streams, and a K=2 run applies 40
+   updates; the device backend at n_envs 1024 (alpha 8, 10 intervals)
+   gives env steps/s with a warm-up run excluded, and a profile window
+   the device busy share and each stream's kernel time; the paper CNN at
+   its published widths runs one ``actor_forward`` and one learner pass
+   on a synthetic trajectory (alpha 5, n_envs 16, (84, 84, 4)), held
+   against the port's CPU at 1e-4 relative, with times. The path
+   launches none of the port's kernels, and the counts say so.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Needs CUDA; imports nothing of jax.
@@ -48,6 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -56,8 +72,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import torch
-import torch.nn.functional as F
+# cuBLAS gives the same bits on every stream only with a fixed workspace,
+# set before the first handle is made (the training phase runs its
+# learner and rollout on two streams)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -190,6 +211,17 @@ SERVE_PATHS = {
 }
 
 
+# the training phase: the goldens' configuration (tests/test_goldens.py)
+TRAIN_ALGORITHMS = ("a2c", "ppo", "vtrace")
+GOLDEN = dict(alpha=4, n_envs=4, seed=3)
+GOLDEN_INTERVALS = 3
+PARAMS_TOL = 1e-5            # card vs CPU, the goldens' final params
+QUICKSTART = ROOT / "examples" / "specs" / "quickstart.json"
+SCALE = dict(alpha=8, n_envs=1024, intervals=10)
+CNN_TRAJ = dict(alpha=5, n_envs=16)
+CNN_REL_TOL = 1e-4           # card vs CPU, paper CNN at fp32, TF32 off
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
@@ -252,9 +284,12 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def profile_window(label: str, fn) -> None:
+def profile_window(label: str, fn, by_stream: bool = False):
     """Device busy share and the top kernels of one window, from
-    torch.profiler's kernel events (times under the profiler)."""
+    torch.profiler's kernel events (times under the profiler).
+    ``by_stream``: also each CUDA stream's kernel time, named by the
+    profiler ranges its kernels were launched from, and the busy share
+    as the union of kernel intervals (two streams overlap); returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -266,13 +301,15 @@ def profile_window(label: str, fn) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # the runtime's profiler ranges (hts.*) show on the device side
+        # too; they are not kernels
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("hts."):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     busy_us = sum(by_name.values())
     if not busy_us:
         print(f"profile {label}: wall {wall_us / 1e3:.3f} ms; device time "
               "not measured (the profiler recorded no kernels)")
-        return
+        return stream_times(label, prof, wall_us) if by_stream else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, kernels "
           f"{busy_us / 1e3:.3f} ms (device busy {100 * busy_us / wall_us:.1f}"
@@ -283,6 +320,70 @@ def profile_window(label: str, fn) -> None:
     print(f"profile {label}: the port's kernels " + ("; ".join(
         f"{k} {t / 1e3:.3f} ms ({100 * t / busy_us:.1f}%)"
         for k, t in ours.items() if t) or "none"))
+    return stream_times(label, prof, wall_us) if by_stream else None
+
+
+def stream_times(label: str, prof, wall_us: float) -> dict:
+    """Each stream's kernel time from the profile's trace, named by the
+    ``record_function`` range (``hts.learner``, ``hts.rollout``) that
+    launched its kernels; the device busy share as the union of all
+    kernel intervals over the wall time."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "dur" in e]
+    if not kernels:
+        print(f"profile {label}: by stream: not measured (no kernel events "
+              "in the trace)")
+        return {"busy_share": None, "streams": {}}
+    launch_ts = {e["args"]["correlation"]: (e.get("tid"), e["ts"])
+                 for e in events if e.get("cat") in ("cuda_runtime",
+                                                     "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    ranges = [(e.get("tid"), e["ts"], e["ts"] + e["dur"], e["name"])
+              for e in events if e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith("hts.")]
+
+    def range_of(kernel):
+        tid, ts = launch_ts.get(kernel["args"].get("correlation"),
+                                (None, None))
+        for rtid, a, b, name in ranges:
+            if rtid == tid and a <= ts <= b:
+                return name
+        return "other"
+
+    streams: dict = {}
+    for k in kernels:
+        row = streams.setdefault(k["args"].get("stream", "?"),
+                                 {"kernel_ms": 0.0, "kernels": 0,
+                                  "ranges": {}})
+        row["kernel_ms"] += k["dur"] / 1e3
+        row["kernels"] += 1
+        name = range_of(k)
+        row["ranges"][name] = row["ranges"].get(name, 0) + 1
+    spans = sorted((k["ts"], k["ts"] + k["dur"]) for k in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    total = sum(r["kernel_ms"] for r in streams.values())
+    print(f"profile {label}: device busy {100 * busy / wall_us:.1f}% "
+          f"(union of kernel intervals {busy / 1e3:.3f} ms of wall "
+          f"{wall_us / 1e3:.3f} ms; kernels summed over streams "
+          f"{total:.3f} ms)")
+    for sid, row in sorted(streams.items(), key=lambda kv: -kv[1]["kernel_ms"]):
+        name = max(row["ranges"], key=row["ranges"].get)
+        print(f"profile {label}: stream {sid} ({name}): {row['kernels']} "
+              f"kernels, {row['kernel_ms']:.3f} ms")
+    return {"busy_share": busy / wall_us, "union_ms": busy / 1e3,
+            "wall_ms": wall_us / 1e3, "streams": {
+                str(sid): {**row, "name": max(row["ranges"],
+                                              key=row["ranges"].get)}
+                for sid, row in streams.items()}}
 
 
 # ------------------------------------------------------------ inputs
@@ -901,6 +1002,262 @@ def _entry(name: str, runs: dict, err: float, times: list) -> dict:
             "shape": first["shape"], "other_shapes": times[1:]}
 
 
+# ------------------------------------------------------------ training
+def build_runtime(spec: dict, device: str, params=None, **hts):
+    """``engine.make_runtime`` as a user builds it from a spec: the env,
+    policy and optimizer from the port's registries, the algorithm named
+    in ``HTSConfig.algorithm``; ``hts`` overrides the spec's ``hts``
+    block. Params from ``params_seed`` on the CPU unless given."""
+    from repro_torch import envs, models, optim
+    from repro_torch.core import determinism, engine
+    env1 = envs.get_env(spec["env"]["name"], **spec["env"].get("kwargs", {}))
+    pol = models.get_policy(spec["policy"]["name"], env1,
+                            **spec["policy"].get("kwargs", {}))
+    if params is None:
+        params = pol.init(determinism.master_key(spec.get("params_seed", 0)))
+    opt = optim.get_optimizer(spec["optimizer"]["name"],
+                              **spec["optimizer"].get("kwargs", {}))
+    cfg = engine.HTSConfig(algorithm=spec["algorithm"],
+                           **{**spec["hts"], **hts})
+    return engine.make_runtime(spec["runtime"]["name"], env1, pol.apply,
+                               params, opt, cfg, batch=spec.get("batch"),
+                               device=device), params
+
+
+def golden_spec(algorithm: str) -> dict:
+    """tests/test_goldens.py's configuration as a spec."""
+    return {"algorithm": algorithm, "env": {"name": "catch"},
+            "policy": {"name": "mlp"}, "runtime": {"name": "mesh"},
+            "optimizer": {"name": "rmsprop",
+                          "kwargs": {"lr": 7e-4, "eps": 1e-5}},
+            "hts": dict(GOLDEN), "params_seed": 0}
+
+
+def _same_streams(a, b) -> bool:
+    return (a.rewards.shape == b.rewards.shape
+            and bool((a.rewards == b.rewards).all())
+            and bool((a.dones == b.dones).all()))
+
+
+def _params_equal(a, b) -> bool:
+    return all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+
+def _params_diff(a, b) -> float:
+    return max((a[k].cpu() - b[k].cpu()).abs().max().item() for k in a)
+
+
+def _train_golden() -> dict:
+    rows = {}
+    for alg in TRAIN_ALGORITHMS:
+        spec = golden_spec(alg)
+        card, params = build_runtime(spec, "cuda")
+        card = card.run(GOLDEN_INTERVALS)
+        cpu = build_runtime(spec, "cpu", params)[0].run(GOLDEN_INTERVALS)
+        same = _same_streams(card, cpu)
+        diff = _params_diff(card.params, cpu.params)
+        steps = (int(card.state.step), int(cpu.state.step))
+        print(f"train goldens {alg} (catch, mlp, rmsprop, alpha 4, n_envs 4, "
+              f"seed 3, {GOLDEN_INTERVALS} intervals, K=1): card vs CPU "
+              f"reward/done streams equal {same}; params max abs diff "
+              f"{diff:.3e} (tol {PARAMS_TOL}); step {steps}")
+        check(same, f"train goldens {alg}: card streams differ from the CPU's")
+        check(diff <= PARAMS_TOL, f"train goldens {alg}: params {diff}")
+        check(steps == (GOLDEN_INTERVALS,) * 2, f"train goldens {alg}: step")
+        rows[alg] = {"streams_equal": same, "params_max_abs_diff": diff}
+    return rows
+
+
+def _train_quickstart(smi: str) -> dict:
+    from repro_torch.core import mesh_runtime
+    spec = json.loads(QUICKSTART.read_text())
+    n = spec["intervals"]
+    print(f"train quickstart ({QUICKSTART.relative_to(ROOT)}): env "
+          f"{spec['env']['name']}, policy {spec['policy']['name']}, "
+          f"{spec['algorithm']}, {spec['optimizer']['name']} "
+          f"{spec['optimizer']['kwargs']}, runtime {spec['runtime']['name']},"
+          f" hts {spec['hts']}, {n} intervals")
+    first, params = build_runtime(spec, "cuda")
+    runs = [first.run(n), build_runtime(spec, "cuda", params)[0].run(n)]
+    rerun_same = (_params_equal(runs[0].params, runs[1].params)
+                  and _same_streams(*runs)
+                  and int(runs[0].state.step) == int(runs[1].state.step))
+    print(f"train quickstart: two runs on the card bit-identical (params and "
+          f"streams) {rerun_same}")
+    check(rerun_same, "train quickstart: a rerun on the card differs")
+    dev = build_runtime(spec, "cuda", params, env_backend="device")[0].run(n)
+    backends_same = _same_streams(runs[0], dev)
+    print(f"train quickstart: host and device env backends give equal streams"
+          f" {backends_same}; equal params "
+          f"{_params_equal(runs[0].params, dev.params)}")
+    check(backends_same, "train quickstart: env backends differ")
+    k2 = build_runtime(spec, "cuda", params, staleness=2)[0].run(n)
+    print(f"train quickstart K=2: step {int(k2.state.step)}")
+    check(int(k2.state.step) == n, "train quickstart K=2: step != intervals")
+    for r in runs + [dev, k2]:
+        check(bool(torch.isfinite(torch.cat([p.flatten() for p in
+                                              r.params.values()])).all()),
+              "train quickstart: params not finite")
+    ret = mesh_runtime.episode_returns({"rewards": runs[0].rewards.copy(),
+                                        "dones": runs[0].dones.copy()})
+    done = ~torch.isnan(ret)
+    half = ret.shape[0] // 2
+    means = [ret[:half][done[:half]].mean().item(),
+             ret[half:][done[half:]].mean().item()]
+    print(f"train quickstart: mean episode return, first / second half of "
+          f"the run: {means[0]:.3f} / {means[1]:.3f}")
+    sps = {"host": [r.sps for r in runs], "device": dev.sps, "K=2": k2.sps}
+    print(f"train quickstart times on {smi}: env steps/s (alpha "
+          f"{spec['hts']['alpha']} x {spec['hts']['n_envs']} envs x {n} "
+          "intervals, host clock to the last synchronize): host backend "
+          + ", ".join(f"{x:.1f}" for x in sps["host"])
+          + f" (the first with the card's warm-up); device backend "
+          f"{dev.sps:.1f}; K=2 (host backend) {k2.sps:.1f}")
+    return {"rerun_bit_identical": rerun_same, "backends_equal": backends_same,
+            "sps": sps, "episode_return_halves": means}
+
+
+def _train_scale(smi: str) -> dict:
+    spec = json.loads(QUICKSTART.read_text())
+    n = SCALE["intervals"]
+    rt, _ = build_runtime(spec, "cuda", env_backend="device",
+                          alpha=SCALE["alpha"], n_envs=SCALE["n_envs"])
+    rt.run(n)                                     # warm-up, excluded
+    runs = [rt.run(n) for _ in range(3)]
+    check(all(int(r.state.step) == n for r in runs), "train scale: step")
+    check(all(_same_streams(runs[0], r) for r in runs[1:]),
+          "train scale: reruns differ")
+    sps = [r.sps for r in runs]
+    print(f"train scale times on {smi}: device backend, mlp, alpha "
+          f"{SCALE['alpha']} x {SCALE['n_envs']} envs x {n} intervals "
+          f"({n * SCALE['alpha'] * SCALE['n_envs']} env steps a run): env "
+          "steps/s (3 runs after a warm-up run) "
+          + ", ".join(f"{x:.1f}" for x in sps) + "; ms per interval "
+          + ", ".join(f"{1e3 * r.wall_time / n:.2f}" for r in runs))
+    prof = profile_window(f"train n_envs {SCALE['n_envs']}, {n} intervals",
+                          lambda: rt.run(n), by_stream=True)
+    return {"sps": sps, "ms_per_interval": [1e3 * r.wall_time / n
+                                            for r in runs], "profile": prof}
+
+
+def _rel(a, b) -> float:
+    b = b.cpu().float()
+    return ((a.cpu().float() - b).abs().max() / b.abs().max()).item()
+
+
+def _train_cnn(smi: str) -> dict:
+    """The paper CNN at its published widths on a synthetic trajectory:
+    one actor_forward and one learner pass on the card against the
+    port's CPU (fp32, TF32 off), and their times."""
+    from repro_torch import models, optim
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.core import (delayed_grad, determinism, engine,
+                                  mesh_runtime, rollout)
+    from repro_torch.core.tree import tree_map
+    from repro_torch.envs.interfaces import Env
+    A, N = CNN_TRAJ["alpha"], CNN_TRAJ["n_envs"]
+    env = Env("paper-cnn", None, None, CONFIG.obs_shape, CONFIG.n_actions)
+    pol = models.get_policy("cnn", env)
+    params = pol.init(determinism.master_key(0))
+    gen = torch.Generator().manual_seed(0)
+    traj = {
+        "obs": torch.rand((A, N) + CONFIG.obs_shape, generator=gen),
+        "actions": torch.randint(0, CONFIG.n_actions, (A, N), generator=gen,
+                                 dtype=torch.int32),
+        "rewards": torch.randn((A, N), generator=gen),
+        "dones": (torch.rand((A, N), generator=gen) < 0.1).float(),
+        "behavior_logprob": torch.log(0.02 + 0.1 * torch.rand(
+            (A, N), generator=gen)),
+        "bootstrap_obs": torch.rand((N,) + CONFIG.obs_shape, generator=gen),
+    }
+    cfg = engine.HTSConfig(alpha=A, n_envs=N)
+    opt = optim.rmsprop(7e-4, eps=1e-5)
+    grad_fn = mesh_runtime.make_grad_fn(pol.apply, cfg)
+    learn = mesh_runtime.make_learner_update(pol.apply, opt, cfg)
+    keys = determinism.obs_keys(determinism.master_key(0), torch.arange(N), 0)
+    out, times = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.to(dev), params)
+        t = tree_map(lambda x: x.to(dev), traj)
+        k = keys.to(dev)
+        dg = delayed_grad.init(p, opt)
+        with engine.deterministic_cudnn():
+            out[dev] = (rollout.actor_forward(pol.apply, p, t["obs"][0], k),
+                        grad_fn(p, t), learn(dg, t))
+            if dev == "cuda":
+                times["actor_forward_ms"] = cuda_ms(
+                    lambda: rollout.actor_forward(pol.apply, p, t["obs"][0],
+                                                  k))
+                times["learner_pass_ms"] = cuda_ms(lambda: learn(dg, t),
+                                                   iters=5, warmup=1)
+    (ca, cb), cg, cdg = out["cpu"]
+    (ga, gb), gg, gdg = out["cuda"]
+    # behavior logprobs, each gradient leaf and each rmsprop state leaf
+    # relative to its own largest magnitude; the updated params relative to
+    # the params tree's largest magnitude: rmsprop's first step,
+    # -lr g / (|g| / 10 + eps), moves an entry by up to lr / eps = 70 times
+    # its gradient's rounding where |g| is near 0, so a leaf of small
+    # weights (fc_w) carries that amplified rounding beside its own scale
+    # (printed per leaf)
+    p_scale = max(cdg.params[k].abs().max().item() for k in cdg.params)
+    p_diff = {k: (gdg.params[k].cpu() - cdg.params[k]).abs().max().item()
+              for k in cdg.params}
+    errs = {"behavior_logprob": _rel(gb, cb),
+            "grads": max(_rel(gg[k], cg[k]) for k in cg),
+            "params": max(p_diff.values()) / p_scale,
+            "opt_state": max(_rel(gdg.opt_state["sq"][k],
+                                  cdg.opt_state["sq"][k]) for k in cg)}
+    print("train paper CNN: card vs CPU, updated params max abs diff by "
+          "leaf (relative to the leaf's largest value): " + "; ".join(
+              f"{k} {d:.2e} ({_rel(gdg.params[k], cdg.params[k]):.2e})"
+              for k, d in p_diff.items()))
+    same_actions = torch.equal(ga.cpu(), ca)
+    print(f"train paper CNN {CONFIG.obs_shape}, convs {CONFIG.conv_filters} "
+          f"x {CONFIG.conv_sizes} / {CONFIG.conv_strides}, fc "
+          f"{CONFIG.hidden}, {CONFIG.n_actions} actions; trajectory alpha {A}"
+          f" x {N} envs: card vs CPU (fp32, TF32 off) actions equal "
+          f"{same_actions}; relative max errors {json.dumps(errs)} (tol "
+          f"{CNN_REL_TOL})")
+    check(same_actions, "train paper CNN: actions differ, card vs CPU")
+    check(max(errs.values()) <= CNN_REL_TOL,
+          f"train paper CNN: card vs CPU {errs}")
+    print(f"train paper CNN times on {smi}: actor_forward (16 obs) "
+          f"{times['actor_forward_ms']:.3f} ms, learner pass (per-env "
+          f"vmap(grad) over {N} envs, tree sum, rmsprop) "
+          f"{times['learner_pass_ms']:.3f} ms")
+    return {"errors": errs, **times}
+
+
+def phase_train() -> dict:
+    """The RL training interval on the card (phase 6 of the docstring).
+    The kernel launch counts are zeroed before and read after: the path
+    launches none of the port's kernels."""
+    import warnings
+    smi = nvidia_smi()
+    zero_launches()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = {"golden": _train_golden(),
+                   "quickstart": _train_quickstart(smi)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).splitlines()[0][:160] for w in caught
+                      if "deterministic" in str(w.message)})
+    print("train: ops without a deterministic implementation, used in the "
+          "goldens and quickstart runs: " + ("; ".join(flagged) or "none"))
+    res["scale"] = _train_scale(smi)
+    res["cnn"] = _train_cnn(smi)
+    launches = read_launches()
+    print(f"train: launches of the port's kernels on the training path "
+          f"{launches}")
+    _expect(launches, {}, "training path")
+    res["nondeterministic_ops"] = flagged
+    print("train: " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -910,6 +1267,7 @@ def main() -> int:
     phase_build()
     errs = phase_kernels()
     runs = {arch: phase_serve(arch) for arch in SERVE_PATHS}
+    phase_train()
 
     smi = nvidia_smi()
     print(f"times on {smi}:")

@@ -10,6 +10,14 @@ scales, the value head, the RG-LRU gates (``w_a``, ``w_i``, biases,
 ``w_lora_*``, ``u`` and ``ln_scale`` stay fp32. Every leaf keeps its
 layout: the port's recurrent mixers use the reference's.
 
+The small policies' params (``models/cnn_policy.py``) are flat dicts;
+the CNN's conv kernels go from the reference's HWIO to the port's OIHW
+(``cnn_from_jax``), the one layout change of the RL slice. A
+``DelayedGradState``, its optimizer state and an env state carry over
+leaf by leaf (``delayed_grad_from_jax``, ``env_state_from_jax``), a
+whole continuation capsule too (``train_state_from_jax``), and
+``tree_leaves`` flattens a tree in ``jax.tree_util`` order.
+
 Takes numpy arrays only (``jax.tree.map(np.asarray, params)`` on the
 JAX side), so this module needs neither ``jax`` nor ``ml_dtypes``.
 """
@@ -19,6 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import delayed_grad
+from repro_torch.core.tree import tree_leaves  # noqa: F401 (re-export)
 from repro_torch.models import backbone
 
 
@@ -96,3 +106,80 @@ def cache_from_jax(tree: dict, cfg: ModelConfig, device=None) -> list:
     """The reference's decode cache tree -> the port's per-layer list."""
     return [{k: to_torch(v, device) for k, v in layer.items()}
             for layer in unstack_layers(tree, cfg)]
+
+
+# ------------------------------------------------------ the RL slice
+def _is_conv_kernel(name: str) -> bool:
+    return name.startswith("conv") and name.endswith("_w")
+
+
+def _hwio_to_oihw(a):
+    """(..., H, W, I, O) -> (..., O, I, H, W): a leading ring axis, where
+    there is one, stays in front."""
+    nd = a.ndim
+    return np.ascontiguousarray(
+        np.transpose(a, tuple(range(nd - 4)) + (nd - 1, nd - 2, nd - 4,
+                                                nd - 3)))
+
+
+def policy_params_from_jax(tree: dict, device=None) -> dict:
+    """A small policy's flat params dict (mlp, cnn, token), or any flat
+    dict shaped like one (an optimizer's per-param state, a behavior
+    ring), from numpy leaves. ``conv<i>_w`` leaves go HWIO -> OIHW."""
+    return {k: to_torch(_hwio_to_oihw(np.asarray(v)) if _is_conv_kernel(k)
+                        else v, device)
+            for k, v in tree.items()}
+
+
+def _params_like(tree, device):
+    """Every dict of params-shaped leaves (params, a ring, optimizer
+    moments) through ``policy_params_from_jax``; other leaves as they
+    are."""
+    if isinstance(tree, dict):
+        if all(not isinstance(v, (dict, tuple, list)) for v in tree.values()):
+            return policy_params_from_jax(tree, device)
+        return {k: _params_like(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_params_like(v, device) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_params_like(v, device) for v in tree)
+    return to_torch(tree, device)
+
+
+def opt_state_from_jax(tree, device=None):
+    """An optimizer state (rmsprop's ``{"sq": params-shaped}``, adam's
+    ``{"m", "v", "t"}``, sgd's ``()``) from numpy leaves."""
+    return _params_like(tree, device)
+
+
+def delayed_grad_from_jax(state, device=None) -> delayed_grad.DelayedGradState:
+    """A reference ``DelayedGradState`` (its four fields, numpy leaves) as
+    the port's: params and the behavior history (plain or a (K, ...)
+    ring) through ``policy_params_from_jax``, the optimizer state through
+    ``opt_state_from_jax``, ``step`` as int32."""
+    params, prev, opt_state, step = state
+    return delayed_grad.DelayedGradState(
+        params=policy_params_from_jax(params, device),
+        params_prev=policy_params_from_jax(prev, device),
+        opt_state=opt_state_from_jax(opt_state, device),
+        step=to_torch(np.asarray(step, np.int32), device))
+
+
+def env_state_from_jax(state: dict, device=None) -> dict:
+    """A (stacked) env state dict, e.g. catch's int32 ``ball_r``,
+    ``ball_c``, ``paddle``."""
+    return {k: to_torch(v, device) for k, v in state.items()}
+
+
+def train_state_from_jax(state, device=None):
+    """A reference ``TrainState`` capsule of the HTS family (numpy
+    leaves) as the port's, which ``run_from`` continues: the leaves keep
+    their ``jax.tree_util`` order (``tree_leaves``) and dtypes."""
+    from repro_torch.core.engine import TrainState
+    algo, env_state, obs, buffer, interval = state
+    return TrainState(
+        algo=delayed_grad_from_jax(algo, device),
+        env_state=env_state_from_jax(env_state, device),
+        obs=to_torch(obs, device),
+        buffer={k: to_torch(v, device) for k, v in buffer.items()},
+        interval=to_torch(np.asarray(interval, np.int32)))

@@ -17,12 +17,18 @@ Recipe (jax 0.9, ``jax_threefry_partitionable=True``):
                    max(tiny, u * (1 - tiny) + tiny)
   gumbel         = -log(-log(uniform))
   categorical    = argmax(logits + gumbel)
+  split(k, n)    = both words of threefry(k, (iota >> 32, iota & mask))
+  randint        = two bit draws from split(k, 2), combined with the span
+                   multiplier 2**32 % span (``jax.random.randint``)
+  normal         = sqrt(2) * erfinv(uniform in (nextafter(-1, 0), 1))
 Integer bits and uniforms match jax exactly; the two ``log``s may differ
 from XLA's by an ulp or two, so an action can differ only where two
-perturbed logits tie to within that.
+perturbed logits tie to within that. ``normal`` evaluates XLA's own
+erfinv polynomial, and differs from XLA by a few ulp in the same way.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
@@ -81,19 +87,60 @@ def request_key(master, request_seed):
     return fold_in(master, request_seed)
 
 
+def _iota_words(shape, device):
+    """The row-major index over ``shape`` as its (high, low) uint32 words."""
+    n = 1
+    for s in shape:
+        n *= s
+    iota = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    return iota >> 32, iota & MASK
+
+
+def _key_words(key, ndim: int):
+    """The two words of ``key`` (..., 2), shaped to broadcast against
+    ``ndim`` trailing draw dims."""
+    lead = key.shape[:-1]
+    return (key[..., 0].reshape(lead + (1,) * ndim),
+            key[..., 1].reshape(lead + (1,) * ndim))
+
+
+def split(key, num: int = 2):
+    """``jax.random.split``: key (..., 2) -> (..., num, 2)."""
+    k1, k2 = _key_words(key, 1)
+    hi, lo = _iota_words((num,), key.device)
+    y1, y2 = threefry2x32(k1, k2, hi, lo)
+    return torch.stack((y1, y2), dim=-1)
+
+
 def random_bits(key, shape):
     """uint32 bits (as int64) of shape key.shape[:-1] + shape: each key
     draws over ``shape`` on its own, as ``jax.vmap`` of
     ``jax.random.bits`` over a batch of keys does."""
-    n = 1
-    for s in shape:
-        n *= s
-    iota = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
-    lead = key.shape[:-1]
-    k1 = key[..., 0].reshape(lead + (1,) * len(shape))
-    k2 = key[..., 1].reshape(lead + (1,) * len(shape))
-    y1, y2 = threefry2x32(k1, k2, iota >> 32, iota & MASK)
+    k1, k2 = _key_words(key, len(shape))
+    hi, lo = _iota_words(tuple(shape), key.device)
+    y1, y2 = threefry2x32(k1, k2, hi, lo)
     return y1 ^ y2
+
+
+def randint(key, shape, minval: int, maxval: int):
+    """int32 draws in [minval, maxval), bit-exact with
+    ``jax.random.randint``: the high and low words come from the two
+    halves of ``split(key)`` and are combined modulo the span through
+    ``2**32 % span``, in uint32 arithmetic. A single word taken modulo the
+    span would give other values for some keys. As in jax, that multiplier
+    is (2**16 % span)**2 in uint32, which wraps to 0 for spans above 2**16:
+    there only the low word counts."""
+    lo_i, hi_i = -2 ** 31, 2 ** 31 - 1
+    if not (lo_i <= minval <= hi_i and lo_i <= maxval <= hi_i):
+        raise ValueError(f"randint bounds [{minval}, {maxval}) outside int32")
+    k = split(key, 2)
+    higher = random_bits(k[..., 0, :], shape)
+    lower = random_bits(k[..., 1, :], shape)
+    span = maxval - minval if maxval > minval else 1
+    mult = ((2 ** 16 % span) ** 2 & MASK) % span
+    off = (((higher % span) * mult) & MASK) + lower % span
+    off = (off & MASK) % span
+    return (minval + off).to(torch.int32)
 
 
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0):
@@ -104,6 +151,47 @@ def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0):
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+# Giles' single-precision erfinv, the approximation XLA lowers
+# ``lax.erf_inv`` to: a degree-8 polynomial in w - 2.5 (w < 5) or in
+# sqrt(w) - 3, w = -log1p(-x^2). Up to ~50 ulp off the true erfinv in the
+# tails (|erfinv(x)| > 3.5), where ``torch.erfinv`` is within an ulp, so the
+# port evaluates the same polynomial to draw XLA's normals.
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x):
+    """fp32 erfinv as XLA computes it (the polynomial above)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_W_LT_5[i], dtype=x.dtype,
+                                            device=x.device),
+                           torch.tensor(_ERFINV_W_GE_5[i], dtype=x.dtype,
+                                        device=x.device))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_W_LT_5)):
+        p = coef(i) + p * w
+    return torch.where(x.abs() == 1, x * torch.inf, p * x)
+
+
+def normal(key, shape):
+    """fp32 ``jax.random.normal``: sqrt(2) * erfinv(u), u uniform in
+    (nextafter(-1, 0), 1). Uniforms are bit-exact; ``erfinv`` (XLA's
+    polynomial) differs from XLA's by an ulp or two, through ``log1p``."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return torch.tensor(np.sqrt(2), dtype=torch.float32,
+                        device=key.device) * erfinv(u)
 
 
 def gumbel(key, shape):

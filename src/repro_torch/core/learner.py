@@ -1,6 +1,9 @@
 """LLM-policy learner pieces. Counterpart of ``repro/core/learner.py``;
-only ``make_serve_step`` is ported so far (the training step waits for
-the LLM training slice, ROADMAP queue 1)."""
+only ``make_serve_step`` is ported so far (the LLM training step waits
+for the LLM training slice, ROADMAP queue 1, item 14). The learner of the
+small policies (mlp, cnn, token) is ported: ``core/mesh_runtime.py``
+(``make_grad_fn``, ``make_learner_update``) on ``core/delayed_grad.py``
+and ``repro_torch.algorithms``."""
 from __future__ import annotations
 
 from typing import Callable
