@@ -40,21 +40,42 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    (bf16 or TF32 tensor cores, fp32 CUDA cores); wkv6's CUDA-core reading
    is printed beside its tensor-core one. Each profile window also prints
    the port's own kernels' share of the device time;
-6. the training interval (``phase_train``): ``engine.make_runtime("mesh",
-   ...)`` built from the port's registries, learner and rollout halves on
-   two CUDA streams. On the goldens' configuration (catch, mlp, rmsprop,
-   alpha 4, n_envs 4, seed 3, 3 intervals) for a2c, ppo and vtrace the
-   card's reward/done streams equal the port's CPU run of the same params
-   and the params are within 1e-5; ``examples/specs/quickstart.json``
-   (read as JSON) runs twice on the card bit-identically, its host and
-   device env backends give equal streams, and a K=2 run applies 40
-   updates; the device backend at n_envs 1024 (alpha 8, 10 intervals)
+6. the training interval (``phase_train``): each run built by
+   ``api.build(spec, device=...)``, the user's path (the ``mesh`` runtime,
+   learner and rollout halves on two CUDA streams). On the goldens'
+   configuration (catch, mlp, rmsprop, alpha 4, n_envs 4, seed 3, 3
+   intervals) for a2c, ppo and vtrace the card's reward/done streams
+   equal the port's CPU run of the same params and the params are within
+   1e-5; ``examples/specs/quickstart.json`` runs twice on the card
+   bit-identically, its host and device env backends give equal streams,
+   and a K=2 run applies 40 updates; the device backend at n_envs 1024 (alpha 8, 10 intervals)
    gives env steps/s with a warm-up run excluded, and a profile window
    the device busy share and each stream's kernel time; the paper CNN at
    its published widths runs one ``actor_forward`` and one learner pass
    on a synthetic trajectory (alpha 5, n_envs 16, (84, 84, 4)), held
    against the port's CPU at 1e-4 relative, with times. The path
-   launches none of the port's kernels, and the counts say so.
+   launches none of the port's kernels, and the counts say so;
+7. the entry point (``phase_run``): ``python -m repro_torch.launch.run
+   --spec examples/specs/quickstart.json`` with no other flag; then with
+   ``--ckpt-dir --ckpt-every 10 --intervals 20`` and again with
+   ``--resume --intervals 40``, whose last checkpoint (the reference's
+   file format) equals an uninterrupted ``Session.fit(40)`` on the card:
+   every capsule leaf ``torch.equal``, the episode-return stream equal; a
+   fit under a fault plan (the checkpoint at 20 truncated, the segment
+   from 20 failed once, ``max_restarts`` 2) recovers past the corrupt
+   checkpoint to the fault-free fit's params and returns; gridmaze
+   (``examples/specs/pool_b.json``: scenario 7, mlp, ppo, K=2; the same
+   with the CPU tests' reduced CNN and with ``examples/atari_a2c.py``'s
+   CNN) on the host and device env backends, card against the port's
+   CPU (TF32 off): streams exact, params within 1e-5 (the atari_a2c CNN:
+   its first learner pass's gradients within 1e-4 relative, its params'
+   distance printed); the device-backend gridmaze at n_envs 1024, env
+   steps/s over 3 runs after a warm-up. The launch counts of the port's
+   kernels over all of that stay 0. Then the kernels' gradient guard:
+   each kernel, called on the card with an input that requires grad
+   under grad mode (and under ``torch.func.grad``), raises; the same
+   call under ``inference_mode`` launches once and matches its plain
+   version.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Needs CUDA; imports nothing of jax.
@@ -77,6 +98,7 @@ from pathlib import Path
 # learner and rollout on two streams)
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -220,6 +242,30 @@ QUICKSTART = ROOT / "examples" / "specs" / "quickstart.json"
 SCALE = dict(alpha=8, n_envs=1024, intervals=10)
 CNN_TRAJ = dict(alpha=5, n_envs=16)
 CNN_REL_TOL = 1e-4           # card vs CPU, paper CNN at fp32, TF32 off
+
+# the entry point: launcher segments (stop at RUN_STOP, resume to
+# RUN_TOTAL, a checkpoint every RUN_EVERY), the fault plan's truncated
+# checkpoint and failed segment, gridmaze cells, the guard's cases
+RUN_STOP, RUN_TOTAL, RUN_EVERY = 20, 40, 10
+POOL_B = ROOT / "examples" / "specs" / "pool_b.json"
+# gridmaze's CNNs on its (9, 9, 3) boards: the reduced one of
+# tests/test_torch_gridmaze_interval.py, held at PARAMS_TOL; and
+# examples/atari_a2c.py's, whose params after rmsprop steps are not a
+# well-conditioned comparison at 1e-5 (PERF.md §6): its streams are
+# held exact, its first learner pass's gradients at CNN_REL_TOL, and its
+# params' distance is printed
+GRIDMAZE_CNNS = {
+    "cnn-reduced": {"name": "cnn", "kwargs": {"conv_filters": [4, 8],
+                                              "conv_sizes": [3, 3],
+                                              "conv_strides": [1, 1],
+                                              "hidden": 16}},
+    "cnn-atari_a2c": {"name": "cnn", "kwargs": {"conv_sizes": [3, 3, 3],
+                                                "conv_strides": [1, 1, 1],
+                                                "hidden": 128}},
+}
+GRIDMAZE_SCALE = dict(alpha=8, n_envs=1024, intervals=10)
+GUARD_CASES = {"flash_attention": FLASH_CASES[1], "lru_scan": LRU_CASES[1],
+               "wkv6": WKV_CASES[2]}
 
 
 def check(cond: bool, what: str) -> None:
@@ -1003,25 +1049,17 @@ def _entry(name: str, runs: dict, err: float, times: list) -> dict:
 
 
 # ------------------------------------------------------------ training
-def build_runtime(spec: dict, device: str, params=None, **hts):
-    """``engine.make_runtime`` as a user builds it from a spec: the env,
-    policy and optimizer from the port's registries, the algorithm named
-    in ``HTSConfig.algorithm``; ``hts`` overrides the spec's ``hts``
-    block. Params from ``params_seed`` on the CPU unless given."""
-    from repro_torch import envs, models, optim
-    from repro_torch.core import determinism, engine
-    env1 = envs.get_env(spec["env"]["name"], **spec["env"].get("kwargs", {}))
-    pol = models.get_policy(spec["policy"]["name"], env1,
-                            **spec["policy"].get("kwargs", {}))
-    if params is None:
-        params = pol.init(determinism.master_key(spec.get("params_seed", 0)))
-    opt = optim.get_optimizer(spec["optimizer"]["name"],
-                              **spec["optimizer"].get("kwargs", {}))
-    cfg = engine.HTSConfig(algorithm=spec["algorithm"],
-                           **{**spec["hts"], **hts})
-    return engine.make_runtime(spec["runtime"]["name"], env1, pol.apply,
-                               params, opt, cfg, batch=spec.get("batch"),
-                               device=device), params
+def build_session(spec, device: str, **hts):
+    """``api.build(spec, device=device)``, the user's path, for an
+    ``ExperimentSpec`` or its dict; ``hts`` overrides the spec's ``hts``
+    block. Params come from ``params_seed`` on the CPU, so a card and a
+    CPU session of one spec start from the same params."""
+    from repro_torch import api
+    if isinstance(spec, dict):
+        spec = api.from_dict(spec)
+    if hts:
+        spec = spec.replace(hts={**spec.hts, **hts})
+    return api.build(spec, device=device)
 
 
 def golden_spec(algorithm: str) -> dict:
@@ -1051,9 +1089,8 @@ def _train_golden() -> dict:
     rows = {}
     for alg in TRAIN_ALGORITHMS:
         spec = golden_spec(alg)
-        card, params = build_runtime(spec, "cuda")
-        card = card.run(GOLDEN_INTERVALS)
-        cpu = build_runtime(spec, "cpu", params)[0].run(GOLDEN_INTERVALS)
+        card = build_session(spec, "cuda").run(GOLDEN_INTERVALS)
+        cpu = build_session(spec, "cpu").run(GOLDEN_INTERVALS)
         same = _same_streams(card, cpu)
         diff = _params_diff(card.params, cpu.params)
         steps = (int(card.state.step), int(cpu.state.step))
@@ -1069,29 +1106,29 @@ def _train_golden() -> dict:
 
 
 def _train_quickstart(smi: str) -> dict:
+    from repro_torch import api
     from repro_torch.core import mesh_runtime
-    spec = json.loads(QUICKSTART.read_text())
-    n = spec["intervals"]
+    spec = api.load(str(QUICKSTART))
+    n = spec.intervals
     print(f"train quickstart ({QUICKSTART.relative_to(ROOT)}): env "
-          f"{spec['env']['name']}, policy {spec['policy']['name']}, "
-          f"{spec['algorithm']}, {spec['optimizer']['name']} "
-          f"{spec['optimizer']['kwargs']}, runtime {spec['runtime']['name']},"
-          f" hts {spec['hts']}, {n} intervals")
-    first, params = build_runtime(spec, "cuda")
-    runs = [first.run(n), build_runtime(spec, "cuda", params)[0].run(n)]
+          f"{spec.env.name}, policy {spec.policy.name}, {spec.algorithm}, "
+          f"{spec.optimizer.name} {spec.optimizer.kwargs}, runtime "
+          f"{spec.runtime.name}, hts {spec.hts}, {n} intervals")
+    runs = [build_session(spec, "cuda").run(n),
+            build_session(spec, "cuda").run(n)]
     rerun_same = (_params_equal(runs[0].params, runs[1].params)
                   and _same_streams(*runs)
                   and int(runs[0].state.step) == int(runs[1].state.step))
     print(f"train quickstart: two runs on the card bit-identical (params and "
           f"streams) {rerun_same}")
     check(rerun_same, "train quickstart: a rerun on the card differs")
-    dev = build_runtime(spec, "cuda", params, env_backend="device")[0].run(n)
+    dev = build_session(spec, "cuda", env_backend="device").run(n)
     backends_same = _same_streams(runs[0], dev)
     print(f"train quickstart: host and device env backends give equal streams"
           f" {backends_same}; equal params "
           f"{_params_equal(runs[0].params, dev.params)}")
     check(backends_same, "train quickstart: env backends differ")
-    k2 = build_runtime(spec, "cuda", params, staleness=2)[0].run(n)
+    k2 = build_session(spec, "cuda", staleness=2).run(n)
     print(f"train quickstart K=2: step {int(k2.state.step)}")
     check(int(k2.state.step) == n, "train quickstart K=2: step != intervals")
     for r in runs + [dev, k2]:
@@ -1108,7 +1145,7 @@ def _train_quickstart(smi: str) -> dict:
           f"the run: {means[0]:.3f} / {means[1]:.3f}")
     sps = {"host": [r.sps for r in runs], "device": dev.sps, "K=2": k2.sps}
     print(f"train quickstart times on {smi}: env steps/s (alpha "
-          f"{spec['hts']['alpha']} x {spec['hts']['n_envs']} envs x {n} "
+          f"{spec.hts['alpha']} x {spec.hts['n_envs']} envs x {n} "
           "intervals, host clock to the last synchronize): host backend "
           + ", ".join(f"{x:.1f}" for x in sps["host"])
           + f" (the first with the card's warm-up); device backend "
@@ -1117,16 +1154,24 @@ def _train_quickstart(smi: str) -> dict:
             "sps": sps, "episode_return_halves": means}
 
 
-def _train_scale(smi: str) -> dict:
-    spec = json.loads(QUICKSTART.read_text())
-    n = SCALE["intervals"]
-    rt, _ = build_runtime(spec, "cuda", env_backend="device",
-                          alpha=SCALE["alpha"], n_envs=SCALE["n_envs"])
-    rt.run(n)                                     # warm-up, excluded
+def _timed_runs(rt, n: int, what: str) -> list:
+    """A warm-up run (excluded), then 3 runs of ``n`` intervals, each
+    applying n updates and all giving the same streams."""
+    rt.run(n)
     runs = [rt.run(n) for _ in range(3)]
-    check(all(int(r.state.step) == n for r in runs), "train scale: step")
+    check(all(int(r.state.step) == n for r in runs), f"{what}: step")
     check(all(_same_streams(runs[0], r) for r in runs[1:]),
-          "train scale: reruns differ")
+          f"{what}: reruns differ")
+    return runs
+
+
+def _train_scale(smi: str) -> dict:
+    from repro_torch import api
+    n = SCALE["intervals"]
+    rt = build_session(api.load(str(QUICKSTART)), "cuda",
+                       env_backend="device", alpha=SCALE["alpha"],
+                       n_envs=SCALE["n_envs"]).runtime
+    runs = _timed_runs(rt, n, "train scale")
     sps = [r.sps for r in runs]
     print(f"train scale times on {smi}: device backend, mlp, alpha "
           f"{SCALE['alpha']} x {SCALE['n_envs']} envs x {n} intervals "
@@ -1258,6 +1303,272 @@ def phase_train() -> dict:
     return res
 
 
+# --------------------------------------------------------- entry point
+def _launcher(args: list, what: str) -> str:
+    """``python -m repro_torch.launch.run ARGS`` from the checkout, as a
+    user runs it; its output printed, a non-zero exit a failure."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.run", *args], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=600)
+    print(f"run: {what}: python -m repro_torch.launch.run "
+          f"{' '.join(args)} -> exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f}s")
+    for line in proc.stdout.splitlines():
+        print(f"  | {line}")
+    check(proc.returncode == 0,
+          f"launcher ({what}) exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _capsules_equal(a, b) -> bool:
+    from repro_torch.core.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x.cpu(), y.cpu()) for x, y in zip(la, lb))
+
+
+def _fail_segment_once(session, at: int):
+    """The segment that starts at interval ``at`` raises once, as a
+    learner death would (the fused runtime has no fault site of its
+    own; the trainer's supervision is what is checked)."""
+    from repro_torch.faults import FaultEvent, InjectedFault
+    rt = session.runtime
+    real = rt.run_from
+    left = [1]
+
+    def run_from(state, n, finalize=True):
+        if int(state.interval) == at and left[0]:
+            left[0] -= 1
+            raise InjectedFault(FaultEvent("learner", at))
+        return real(state, n, finalize)
+
+    rt.run_from = run_from
+    return session
+
+
+def _run_launcher(tmp: Path) -> dict:
+    """(a): the launcher as typed, then stopped and resumed, against an
+    uninterrupted ``Session.fit`` on the card."""
+    from repro_torch import api
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import trainer
+    quick = str(QUICKSTART.relative_to(ROOT))
+    _launcher(["--spec", quick], "the quickstart spec, no other flag")
+    ck = tmp / "launcher"
+    common = ["--spec", quick, "--ckpt-dir", str(ck), "--ckpt-every",
+              str(RUN_EVERY)]
+    _launcher(common + ["--intervals", str(RUN_STOP)],
+              f"checkpointed, stopped at {RUN_STOP}")
+    out = _launcher(common + ["--intervals", str(RUN_TOTAL), "--resume"],
+                    f"resumed to {RUN_TOTAL}")
+    check(f"{RUN_TOTAL} intervals ({RUN_STOP} resumed)" in out,
+          "launcher: the resumed run did not report its resume")
+    spec = api.load(str(QUICKSTART)).replace(
+        checkpoint={"dir": str(tmp / "straight"), "every": RUN_EVERY})
+    straight = api.build(spec, device="cuda").fit(RUN_TOTAL)
+    path = ckpt_io.latest(str(ck))
+    check(path is not None and path.endswith(f"step_{RUN_TOTAL:08d}"),
+          f"launcher: last checkpoint {path}")
+    meta = ckpt_io.load_metadata(path)
+    capsule = trainer.restore_capsule(path, straight.state)
+    same_capsule = _capsules_equal(capsule, straight.state)
+    returns = np.asarray(meta["metrics"]["returns"])
+    same_returns = np.array_equal(returns, straight.episode_returns)
+    print(f"run: launcher stopped at {RUN_STOP} and resumed to {RUN_TOTAL} "
+          f"vs Session.fit({RUN_TOTAL}) on the card: every capsule leaf "
+          f"torch.equal {same_capsule}; episode-return streams equal "
+          f"{same_returns} ({len(returns)} episodes); manifest format "
+          f"{meta['format']}, runtime {meta['runtime']}")
+    check(same_capsule, "launcher resume: capsule differs from Session.fit")
+    check(same_returns, "launcher resume: episode returns differ")
+    return {"straight": straight, "capsule_equal": same_capsule,
+            "returns_equal": same_returns, "episodes": len(returns)}
+
+
+def _run_faults(tmp: Path, straight) -> dict:
+    """(b): a truncated checkpoint and a failed segment, recovered."""
+    from repro_torch import api
+    spec = api.load(str(QUICKSTART)).replace(
+        checkpoint={"dir": str(tmp / "faults"), "every": RUN_EVERY},
+        faults={"events": [{"site": "checkpoint", "interval": RUN_STOP,
+                            "kind": "truncate"}],
+                "max_restarts": 2, "backoff": 0.0, "backoff_cap": 0.0})
+    session = _fail_segment_once(api.build(spec, device="cuda"), RUN_STOP)
+    rep = session.fit(RUN_TOTAL)
+    restored = [r["restored_to"] for r in rep.recoveries]
+    same = (_params_equal(rep.params, straight.params)
+            and _capsules_equal(rep.state, straight.state)
+            and np.array_equal(rep.episode_returns, straight.episode_returns)
+            and np.array_equal(rep.rewards, straight.rewards))
+    print(f"run: fault plan (checkpoint {RUN_STOP} truncated, the segment "
+          f"from {RUN_STOP} failed once, max_restarts 2): restarts "
+          f"{rep.restarts}, restored to {restored}; params, capsule, "
+          f"episode returns and rewards equal the fault-free fit {same}")
+    check(rep.restarts == 1 and restored == [RUN_STOP - RUN_EVERY],
+          f"fault plan: restarts {rep.restarts}, restored to {restored}")
+    check(same, "fault plan: the recovered fit differs from the fault-free")
+    return {"restarts": rep.restarts, "restored_to": restored, "equal": same}
+
+
+def _first_pass_grads(spec, backend: str) -> float:
+    """The largest per-leaf relative error, card vs CPU, of the learner's
+    gradient on the first real pass of a spec's run: behavior params and
+    ring slot taken from the CPU run's state after K + 1 intervals, the
+    same inputs on both devices."""
+    from repro_torch.core import delayed_grad, engine, mesh_runtime
+    from repro_torch.core.tree import tree_map
+    session = build_session(spec, "cpu", env_backend=backend)
+    K = session.cfg.staleness
+    session.runtime.run(K + 1)
+    state = session.runtime.state()
+    grad_fn = mesh_runtime.make_grad_fn(session.policy.apply, session.cfg)
+    inputs = (delayed_grad.behavior_params(state.algo),
+              mesh_runtime.ring_read(state.buffer, K))
+    with engine.deterministic_cudnn():
+        cpu = grad_fn(*inputs)
+        card = grad_fn(*tree_map(lambda x: x.to("cuda"), inputs))
+    return max(_rel(card[k], cpu[k]) for k in cpu)
+
+
+def _run_gridmaze(smi: str) -> dict:
+    """(c) and (d): gridmaze card vs CPU on both backends, mlp and CNNs;
+    the device backend's rate at n_envs 1024."""
+    from repro_torch import api
+    base = api.load(str(POOL_B))
+    n = base.intervals
+    rows = {}
+    specs = {"mlp": base, **{name: base.replace(policy=pol)
+                             for name, pol in GRIDMAZE_CNNS.items()}}
+    for pol_name, spec in specs.items():
+        for backend in ("host", "device"):
+            card = build_session(spec, "cuda", env_backend=backend).run(n)
+            cpu = build_session(spec, "cpu", env_backend=backend).run(n)
+            same = _same_streams(card, cpu)
+            diff = _params_diff(card.params, cpu.params)
+            held = pol_name != "cnn-atari_a2c"
+            row = {"streams_equal": same, "params_max_abs_diff": diff}
+            extra = ""
+            if not held:
+                row["first_pass_grads_rel_err"] = _first_pass_grads(
+                    spec, backend)
+                extra = (f"; first learner pass gradients max relative err "
+                         f"{row['first_pass_grads_rel_err']:.3e} (tol "
+                         f"{CNN_REL_TOL})")
+            print(f"run: gridmaze (scenario {spec.env.kwargs}, {pol_name} "
+                  f"{spec.policy.kwargs}, {spec.algorithm}, K="
+                  f"{spec.hts['staleness']}, {backend} backend, {n} "
+                  f"intervals): card vs CPU streams equal {same}; params "
+                  f"max abs diff {diff:.3e} "
+                  + (f"(tol {PARAMS_TOL})" if held else "(printed, not held)")
+                  + extra + f"; steps {int(card.state.step)}")
+            check(same, f"gridmaze {pol_name} {backend}: streams differ")
+            if held:
+                check(diff <= PARAMS_TOL,
+                      f"gridmaze {pol_name} {backend}: params {diff}")
+            else:
+                check(row["first_pass_grads_rel_err"] <= CNN_REL_TOL,
+                      f"gridmaze {pol_name} {backend}: gradients {row}")
+                check(bool(torch.isfinite(torch.cat(
+                    [p.flatten() for p in card.params.values()])).all()),
+                      f"gridmaze {pol_name} {backend}: params not finite")
+            rows[f"{pol_name}-{backend}"] = row
+    g = GRIDMAZE_SCALE
+    rt = build_session(base, "cuda", env_backend="device", alpha=g["alpha"],
+                       n_envs=g["n_envs"]).runtime
+    runs = _timed_runs(rt, g["intervals"], "gridmaze scale")
+    sps = [r.sps for r in runs]
+    print(f"run: gridmaze scale times on {smi}: device backend, "
+          f"{base.policy.name}, {base.algorithm}, K="
+          f"{base.hts['staleness']}, alpha {g['alpha']} x {g['n_envs']} envs "
+          f"x {g['intervals']} intervals: env steps/s (3 runs after a "
+          "warm-up run) " + ", ".join(f"{x:.1f}" for x in sps))
+    return {"cells": rows, "scale_sps": sps}
+
+
+def _run_guard() -> dict:
+    """(e): each kernel refuses a differentiable call, launching nothing,
+    and runs once under inference_mode, matching its plain version at
+    the tolerance of phase 3."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.lru_scan import ops as lru_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    causal = GUARD_CASES["flash_attention"][5]
+    calls = {
+        "flash_attention": (
+            flash_inputs(GUARD_CASES["flash_attention"], gen), TOL,
+            lambda *t, use_kernel=True: fa_ops.attend(
+                *t, causal=causal, use_kernel=use_kernel)),
+        "lru_scan": (
+            lru_inputs(GUARD_CASES["lru_scan"], gen), SCAN_TOL,
+            lambda *t, use_kernel=True: lru_ops.scan(
+                *t, use_kernel=use_kernel)[0]),
+        "wkv6": (
+            wkv_inputs(GUARD_CASES["wkv6"], gen), SCAN_TOL,
+            lambda *t, use_kernel=True: wkv_ops.mix(
+                *t, use_kernel=use_kernel)[0]),
+    }
+    rows = {}
+    for name, (inputs, tols, call) in calls.items():
+        grad_in = [x.detach().clone().requires_grad_() for x in inputs]
+        refused = []
+        for mode, fn in (
+                ("autograd", lambda: call(*grad_in)),
+                ("torch.func.grad", lambda: torch.func.grad(
+                    lambda x0: call(x0, *inputs[1:]).float().sum())(
+                        inputs[0]))):
+            zero_launches()
+            try:
+                fn()
+                ok = False
+            except RuntimeError as e:
+                ok = "no backward yet" in str(e)
+            ok = ok and read_launches()[name] == 0
+            refused.append(ok)
+            print(f"run: guard {name} under {mode} with an input that "
+                  f"requires grad: refused, nothing launched {ok}")
+        zero_launches()
+        with torch.inference_mode():
+            out = call(*grad_in)
+            plain = call(*inputs, use_kernel=False)
+        ran = read_launches()[name] == 1
+        tol = tols[inputs[0].dtype]
+        err = (out.float() - plain.float()).abs().max().item()
+        close = torch.allclose(out.float(), plain.float(), atol=tol, rtol=tol)
+        print(f"run: guard {name} under inference_mode with the same "
+              f"inputs: launched once {ran}; vs plain max abs err "
+              f"{err:.3e} (allclose at {tol} {close})")
+        check(all(refused), f"guard {name}: a differentiable call ran")
+        check(ran and close, f"guard {name}: inference_mode call")
+        rows[name] = {"refused": refused, "inference_mode_err": err}
+    return rows
+
+
+def phase_run() -> dict:
+    """The entry point on the card (phase 7 of the docstring). The kernel
+    launch counts are zeroed before and read after the training paths:
+    they launch none of the port's kernels. The guard's calls come after
+    that reading."""
+    import tempfile
+    smi = nvidia_smi()
+    zero_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as d:
+        tmp = Path(d)
+        launcher = _run_launcher(tmp)
+        faults = _run_faults(tmp, launcher.pop("straight"))
+    gridmaze = _run_gridmaze(smi)
+    launches = read_launches()
+    print(f"run: launches of the port's kernels on the entry point's paths "
+          f"{launches}")
+    _expect(launches, {}, "entry point paths")
+    res = {"launcher": launcher, "faults": faults, "gridmaze": gridmaze,
+           "guard": _run_guard()}
+    print("run: " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1268,6 +1579,7 @@ def main() -> int:
     errs = phase_kernels()
     runs = {arch: phase_serve(arch) for arch in SERVE_PATHS}
     phase_train()
+    phase_run()
 
     smi = nvidia_smi()
     print(f"times on {smi}:")

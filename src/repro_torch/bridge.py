@@ -12,11 +12,13 @@ layout: the port's recurrent mixers use the reference's.
 
 The small policies' params (``models/cnn_policy.py``) are flat dicts;
 the CNN's conv kernels go from the reference's HWIO to the port's OIHW
-(``cnn_from_jax``), the one layout change of the RL slice. A
+(``policy_params_from_jax``), the one layout change of the RL slice. A
 ``DelayedGradState``, its optimizer state and an env state carry over
 leaf by leaf (``delayed_grad_from_jax``, ``env_state_from_jax``), a
 whole continuation capsule too (``train_state_from_jax``), and
-``tree_leaves`` flattens a tree in ``jax.tree_util`` order.
+``tree_leaves`` flattens a tree in ``jax.tree_util`` order. The way back,
+``train_state_to_reference``, gives a capsule's numpy leaves in the
+reference's layout: what the checkpoints hold.
 
 Takes numpy arrays only (``jax.tree.map(np.asarray, params)`` on the
 JAX side), so this module needs neither ``jax`` nor ``ml_dtypes``.
@@ -131,19 +133,35 @@ def policy_params_from_jax(tree: dict, device=None) -> dict:
             for k, v in tree.items()}
 
 
-def _params_like(tree, device):
-    """Every dict of params-shaped leaves (params, a ring, optimizer
-    moments) through ``policy_params_from_jax``; other leaves as they
-    are."""
+def _oihw_to_hwio(a):
+    """The inverse of ``_hwio_to_oihw``: (..., O, I, H, W) -> (..., H, W,
+    I, O)."""
+    nd = a.ndim
+    return np.ascontiguousarray(
+        np.transpose(a, tuple(range(nd - 4)) + (nd - 2, nd - 1, nd - 3,
+                                                nd - 4)))
+
+
+def _map_params_like(tree, flat_fn, leaf_fn):
+    """``flat_fn`` over every dict of params-shaped leaves (params, a
+    ring, optimizer moments), ``leaf_fn`` over every other leaf."""
     if isinstance(tree, dict):
         if all(not isinstance(v, (dict, tuple, list)) for v in tree.values()):
-            return policy_params_from_jax(tree, device)
-        return {k: _params_like(v, device) for k, v in tree.items()}
+            return flat_fn(tree)
+        return {k: _map_params_like(v, flat_fn, leaf_fn)
+                for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_params_like(v, device) for v in tree))
+        return type(tree)(*(_map_params_like(v, flat_fn, leaf_fn)
+                            for v in tree))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_params_like(v, device) for v in tree)
-    return to_torch(tree, device)
+        return type(tree)(_map_params_like(v, flat_fn, leaf_fn) for v in tree)
+    return leaf_fn(tree)
+
+
+def _params_like(tree, device):
+    return _map_params_like(tree,
+                            lambda d: policy_params_from_jax(d, device),
+                            lambda x: to_torch(x, device))
 
 
 def opt_state_from_jax(tree, device=None):
@@ -183,3 +201,23 @@ def train_state_from_jax(state, device=None):
         obs=to_torch(obs, device),
         buffer={k: to_torch(v, device) for k, v in buffer.items()},
         interval=to_torch(np.asarray(interval, np.int32)))
+
+
+def to_numpy(t) -> np.ndarray:
+    """A tensor (any device) as a host numpy array of the same dtype."""
+    return t.detach().cpu().numpy()
+
+
+def policy_params_to_reference(tree: dict) -> dict:
+    """The inverse of ``policy_params_from_jax``: numpy leaves, conv
+    kernels OIHW -> HWIO."""
+    return {k: _oihw_to_hwio(to_numpy(v)) if _is_conv_kernel(k)
+            else to_numpy(v) for k, v in tree.items()}
+
+
+def train_state_to_reference(state):
+    """A capsule of the HTS family (the port's ``TrainState``) as numpy
+    leaves in the reference's layout, with the same NamedTuple types, so
+    ``checkpoint.io`` writes what the reference would: the inverse of
+    ``train_state_from_jax``."""
+    return _map_params_like(state, policy_params_to_reference, to_numpy)

@@ -79,6 +79,18 @@ class RunResult:
     dones: np.ndarray
     metrics: Any = None
 
+    def interval_metrics(self):
+        """Yield ``(i, metrics)`` per interval: the reward/done slices
+        plus any extra ``metrics`` streams, sliced on their leading
+        interval axis (what ``api.Session`` and ``core/trainer.Trainer``
+        hand their observers)."""
+        extras = self.metrics or {}
+        for i in range(self.rewards.shape[0]):
+            m = {"rewards": self.rewards[i], "dones": self.dones[i]}
+            for key, arr in extras.items():
+                m[key] = arr[i]
+            yield i, m
+
 
 @runtime_checkable
 class Runtime(Protocol):

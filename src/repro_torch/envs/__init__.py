@@ -1,9 +1,11 @@
 """Environment registry: ``get_env(name, **kwargs)``.
 
-Counterpart of ``repro/envs/__init__.py``. Registered: ``catch`` (the
-host env) and ``catch_device`` (its batched port, which specs normally
-reach through ``HTSConfig.env_backend="device"``; ``envs.device``
-resolves a host env's port). Built-ins load on first lookup; an unknown
+Counterpart of ``repro/envs/__init__.py``. Registered: ``catch`` and
+``gridmaze`` (host envs) and ``catch_device`` and ``gridmaze_device``
+(their batched ports, which specs normally reach through
+``HTSConfig.env_backend="device"``; ``envs.device`` resolves a host
+env's port). ``football``, ``token`` and ``token_stream`` are not ported
+yet (ROADMAP queue 1). Built-ins load on first lookup; an unknown
 name raises ``KeyError`` listing the names.
 """
 from __future__ import annotations
@@ -16,7 +18,9 @@ _REGISTRY: Dict[str, Callable[..., Any]] = {}
 # name -> (module, factory attribute), imported on first lookup
 _LAZY: Dict[str, tuple] = {
     "catch": ("repro_torch.envs.catch", "make"),
+    "gridmaze": ("repro_torch.envs.gridmaze", "make"),
     "catch_device": ("repro_torch.envs.device.catch", "make"),
+    "gridmaze_device": ("repro_torch.envs.device.gridmaze", "make"),
 }
 
 

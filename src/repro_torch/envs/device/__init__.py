@@ -12,7 +12,7 @@ so the rollout consumes either. ``HTSConfig.env_backend`` picks one
 (``batched_env``). The oracle contract: for every port,
 ``vectorize(host_env, n)`` and the port give bit-identical (state, obs,
 reward, done) for identical (keys, actions), through auto-resets.
-Registered ports: ``catch``.
+Registered ports: ``catch``, ``gridmaze``.
 """
 from __future__ import annotations
 
@@ -59,6 +59,7 @@ _REGISTRY: Dict[str, Callable[..., DeviceEnv]] = {}
 # host env name -> (module, factory attribute), imported on first lookup
 _LAZY: Dict[str, tuple] = {
     "catch": ("repro_torch.envs.device.catch", "make"),
+    "gridmaze": ("repro_torch.envs.device.gridmaze", "make"),
 }
 
 

@@ -13,6 +13,11 @@ interpret mode off the TPU; a CUDA tensor takes the kernel, or raises if
 the kernel cannot be built or launched. The plain version runs on the
 card only when the caller asks for it with ``use_kernel=False``.
 
+The kernels are forward only: the CUDA route refuses an input that
+autograd or ``torch.func`` would differentiate (``refuse_grad``), since
+its outputs, written through ``ctypes``, would carry no gradient. The
+CPU route differentiates through the plain version.
+
 Kernels are built at first use by ``nvcc`` into a shared library with a
 plain C interface (no PyTorch headers), keyed on a hash of the sources
 and flags, under ``build/repro_torch_kernels/`` at the root of the checkout.
@@ -45,6 +50,32 @@ def use_kernel_for(x: torch.Tensor, use_kernel: bool) -> bool:
     if x.device.type == "cuda":
         return use_kernel
     raise ValueError(f"no kernel route for device {x.device}")
+
+
+def _grad_tracked(t: torch.Tensor) -> bool:
+    """Is ``t``, at any level of ``torch.func`` wrapping, a tensor that
+    ``grad``/``vjp``/``jvp`` differentiates?"""
+    ft = torch._C._functorch
+    while ft.is_functorch_wrapped_tensor(t):
+        if ft.is_gradtrackingtensor(t):
+            return True
+        t = ft.get_unwrapped(t)
+    return False
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise unless the kernel ``what`` may run on these inputs: none may
+    require grad while grad mode is on, and none may be differentiated
+    by a ``torch.func`` transform. ``None`` entries are skipped."""
+    for t in tensors:
+        if t is None:
+            continue
+        if _grad_tracked(t) or (torch.is_grad_enabled() and t.requires_grad):
+            raise RuntimeError(
+                f"the {what} CUDA kernel has no backward yet (ROADMAP queue "
+                "1, item 7): call it under torch.no_grad() or "
+                "torch.inference_mode() with inputs that do not require "
+                "grad, or differentiate the plain version on the CPU")
 
 
 def _nvcc() -> str:

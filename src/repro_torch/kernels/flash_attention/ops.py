@@ -12,13 +12,14 @@ masked by ``kv_len`` and padded query rows are sliced away, so both
 routes compute one function.
 
 Forward only: the reference's backward (the VJP of ``ref.py``) waits for
-the training slice.
+the LLM training path; until then the CUDA route refuses inputs that
+would be differentiated (``kernels.refuse_grad``).
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
 
-from repro_torch.kernels import use_kernel_for
+from repro_torch.kernels import refuse_grad, use_kernel_for
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -28,6 +29,7 @@ def attend(q, k, v, *, causal: bool = True, window: int = 0,
            use_kernel: bool = True):
     """q: (B, S, H, Dh); k, v: (B, S, KV, Dh) -> (B, S, H, Dh)."""
     if use_kernel_for(q, use_kernel):
+        refuse_grad("flash_attention", q, k, v)
         return kernel.flash_attention(q, k, v, causal=causal, window=window,
                                       cap=cap)
     Sq, Sk = q.shape[1], k.shape[1]

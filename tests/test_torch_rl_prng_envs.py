@@ -225,14 +225,15 @@ def test_env_state_bridge_continues_the_episode():
 
 
 def test_env_registry():
-    assert envs.env_names() == ["catch", "catch_device"]
+    assert envs.env_names() == ["catch", "catch_device", "gridmaze",
+                                "gridmaze_device"]
     assert envs.get_env("catch").obs_shape == (10, 5, 1)
     assert envs.get_env("catch_device").host_name == "catch"
     assert tdevice.has_device_port("catch")
-    assert not tdevice.has_device_port("gridmaze")
+    assert not tdevice.has_device_port("football")
     with pytest.raises(KeyError, match="registered: \\['catch', "
-                       "'catch_device'\\]"):
-        envs.get_env("gridmaze")
+                       "'catch_device', 'gridmaze', 'gridmaze_device'\\]"):
+        envs.get_env("football")
     with pytest.raises(ValueError, match="no device-resident port"):
         tdevice.get_device_env("football")
 
@@ -243,4 +244,4 @@ def test_batched_env_backends():
     assert tdevice.batched_env(env1, 4, "device").name == "catch@device"
     with pytest.raises(ValueError, match="unknown env_backend"):
         tdevice.batched_env(env1, 4, "tpu")
-    assert tdevice.device_port_names() == ["catch"]
+    assert tdevice.device_port_names() == ["catch", "gridmaze"]
