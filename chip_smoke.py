@@ -75,7 +75,33 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    each kernel, called on the card with an input that requires grad
    under grad mode (and under ``torch.func.grad``), raises; the same
    call under ``inference_mode`` launches once and matches its plain
-   version.
+   version;
+8. the threaded host runtime and the baselines (``phase_host``): (a)
+   ``python -m repro_torch.launch.run --spec
+   examples/specs/quickstart.json --runtime host`` as typed, then
+   checkpointed and stopped at 20 and resumed to 40, whose last
+   checkpoint equals the ``mesh`` runtime's ``Session.fit(40)`` leaf for
+   leaf with the same episode-return stream; (b) host == mesh on the card
+   (``torch.equal``) at K 1 and 2, with 1 and 4 actors, with and without
+   the football spec's step-time model, and the card's host run against
+   the port's CPU (streams exact, params within 1e-5); (c)
+   ``examples/atari_a2c.py``'s contenders (mesh, sync, async with
+   V-trace at k=8) and the host runtime, 20 intervals each on the card
+   against the port's CPU: streams exact, the actions of interval 0 (at
+   theta_0) exact, each one's first learner gradient within 1e-4
+   relative per leaf; printed: the intervals whose actions differ later,
+   the params' distance, beside the same for the CPU run from theta_0
+   moved one ulp (what rounding alone does to this CNN under rmsprop),
+   and tail rewards; then the host runtime's device memory after 25
+   intervals within one parameter tree of that after 5; (d) an
+   executor death and a NaN learner update under ``max_restarts`` 2
+   recovering to the fault-free fit; (e) env steps/s of host, mesh, sync
+   and async at the quickstart spec, the host runtime's profile split,
+   and a simulated learner twice as slow as an interval at K 1 and 2
+   beside ``staleness_pipeline_runtime``: K=2's last interval ends
+   before K=1's (a serial learner slower than the rollout bounds the
+   whole run at every K, so the totals are printed, not compared). The
+   port's kernels launch 0 times over all of it.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Needs CUDA; imports nothing of jax.
@@ -266,6 +292,32 @@ GRIDMAZE_CNNS = {
 GRIDMAZE_SCALE = dict(alpha=8, n_envs=1024, intervals=10)
 GUARD_CASES = {"flash_attention": FLASH_CASES[1], "lru_scan": LRU_CASES[1],
                "wkv6": WKV_CASES[2]}
+
+# the host runtime and the baselines (phase_host): intervals of the
+# host == mesh cells; the football spec's step-time model (shape 1, rate
+# 1, time_scale 0.002) on catch; examples/atari_a2c.py's contenders
+# (gridmaze, its CNN, rmsprop, alpha 5, n_envs 8) and the host runtime as
+# a fourth, with their interval count; the rate runs' intervals; the
+# pipeline runs' intervals
+HOST_N = 6
+FOOTBALL = ROOT / "examples" / "specs" / "football_ppo.json"
+ATARI_SPEC = {
+    "env": {"name": "gridmaze"},
+    "policy": {"name": "cnn", "kwargs": {"conv_sizes": [3, 3, 3],
+                                         "conv_strides": [1, 1, 1],
+                                         "hidden": 128}},
+    "optimizer": {"name": "rmsprop", "kwargs": {"lr": 7e-4, "eps": 1e-5}},
+    "algorithm": "a2c",
+    "hts": {"alpha": 5, "n_envs": 8, "seed": 0, "entropy_coef": 0.01}}
+ATARI_CONTENDERS = {
+    "mesh": ("HTS-RL(A2C)", {}), "sync": ("sync A2C", {}),
+    "async": ("async+vtrace (k=8)",
+              {"acfg": {"staleness": 8, "correction": "vtrace"}}),
+    "host": ("HTS-RL(A2C), threaded", {})}
+ATARI_INTERVALS = 20
+MEM_SHORT, MEM_LONG = 5, 25          # host runtime's memory, intervals
+RATE_INTERVALS = 10
+PIPE_INTERVALS = 6
 
 
 def check(cond: bool, what: str) -> None:
@@ -1304,7 +1356,7 @@ def phase_train() -> dict:
 
 
 # --------------------------------------------------------- entry point
-def _launcher(args: list, what: str) -> str:
+def _launcher(args: list, what: str, tag: str) -> str:
     """``python -m repro_torch.launch.run ARGS`` from the checkout, as a
     user runs it; its output printed, a non-zero exit a failure."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -1312,7 +1364,7 @@ def _launcher(args: list, what: str) -> str:
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.run", *args], cwd=ROOT,
         env=env, capture_output=True, text=True, timeout=600)
-    print(f"run: {what}: python -m repro_torch.launch.run "
+    print(f"{tag}: {what}: python -m repro_torch.launch.run "
           f"{' '.join(args)} -> exit {proc.returncode} in "
           f"{time.perf_counter() - t0:.1f}s")
     for line in proc.stdout.splitlines():
@@ -1348,41 +1400,51 @@ def _fail_segment_once(session, at: int):
     return session
 
 
-def _run_launcher(tmp: Path) -> dict:
-    """(a): the launcher as typed, then stopped and resumed, against an
-    uninterrupted ``Session.fit`` on the card."""
+def _run_launcher(tmp: Path, runtime: str = "mesh") -> dict:
+    """(a) of phase_run and of phase_host: the launcher as typed (with
+    ``--runtime`` where the spec's is not the one asked for), then
+    stopped and resumed, against the ``mesh`` runtime's uninterrupted
+    ``Session.fit`` on the card."""
     from repro_torch import api
     from repro_torch.checkpoint import io as ckpt_io
     from repro_torch.core import trainer
     quick = str(QUICKSTART.relative_to(ROOT))
-    _launcher(["--spec", quick], "the quickstart spec, no other flag")
-    ck = tmp / "launcher"
-    common = ["--spec", quick, "--ckpt-dir", str(ck), "--ckpt-every",
+    spec = api.load(str(QUICKSTART))
+    pick = [] if runtime == spec.runtime.name else ["--runtime", runtime]
+    tag = "run" if runtime == "mesh" else "host"     # the phase's prefix
+    _launcher(["--spec", quick, *pick],
+              "the quickstart spec" + (f" on the {runtime} runtime" if pick
+                                       else ", no other flag"), tag)
+    ck = tmp / f"{runtime}_launcher"
+    common = ["--spec", quick, *pick, "--ckpt-dir", str(ck), "--ckpt-every",
               str(RUN_EVERY)]
     _launcher(common + ["--intervals", str(RUN_STOP)],
-              f"checkpointed, stopped at {RUN_STOP}")
+              f"checkpointed, stopped at {RUN_STOP}", tag)
     out = _launcher(common + ["--intervals", str(RUN_TOTAL), "--resume"],
-                    f"resumed to {RUN_TOTAL}")
+                    f"resumed to {RUN_TOTAL}", tag)
     check(f"{RUN_TOTAL} intervals ({RUN_STOP} resumed)" in out,
-          "launcher: the resumed run did not report its resume")
-    spec = api.load(str(QUICKSTART)).replace(
-        checkpoint={"dir": str(tmp / "straight"), "every": RUN_EVERY})
-    straight = api.build(spec, device="cuda").fit(RUN_TOTAL)
+          f"{runtime} launcher: the resumed run did not report its resume")
+    straight = api.build(spec.replace(checkpoint={
+        "dir": str(tmp / f"{runtime}_straight"), "every": RUN_EVERY}),
+        device="cuda").fit(RUN_TOTAL)
     path = ckpt_io.latest(str(ck))
     check(path is not None and path.endswith(f"step_{RUN_TOTAL:08d}"),
-          f"launcher: last checkpoint {path}")
+          f"{runtime} launcher: last checkpoint {path}")
     meta = ckpt_io.load_metadata(path)
     capsule = trainer.restore_capsule(path, straight.state)
     same_capsule = _capsules_equal(capsule, straight.state)
     returns = np.asarray(meta["metrics"]["returns"])
     same_returns = np.array_equal(returns, straight.episode_returns)
-    print(f"run: launcher stopped at {RUN_STOP} and resumed to {RUN_TOTAL} "
-          f"vs Session.fit({RUN_TOTAL}) on the card: every capsule leaf "
+    print(f"{tag}: launcher{' ' + ' '.join(pick) if pick else ''} stopped "
+          f"at {RUN_STOP} and resumed to {RUN_TOTAL} vs the mesh runtime's "
+          f"Session.fit({RUN_TOTAL}) on the card: every capsule leaf "
           f"torch.equal {same_capsule}; episode-return streams equal "
           f"{same_returns} ({len(returns)} episodes); manifest format "
           f"{meta['format']}, runtime {meta['runtime']}")
-    check(same_capsule, "launcher resume: capsule differs from Session.fit")
-    check(same_returns, "launcher resume: episode returns differ")
+    check(meta["runtime"] == runtime, f"{runtime} launcher: manifest runtime")
+    check(same_capsule, f"{runtime} launcher resume: capsule differs from "
+          "Session.fit")
+    check(same_returns, f"{runtime} launcher resume: episode returns differ")
     return {"straight": straight, "capsule_equal": same_capsule,
             "returns_equal": same_returns, "episodes": len(returns)}
 
@@ -1412,23 +1474,26 @@ def _run_faults(tmp: Path, straight) -> dict:
     return {"restarts": rep.restarts, "restored_to": restored, "equal": same}
 
 
-def _first_pass_grads(spec, backend: str) -> float:
-    """The largest per-leaf relative error, card vs CPU, of the learner's
-    gradient on the first real pass of a spec's run: behavior params and
-    ring slot taken from the CPU run's state after K + 1 intervals, the
-    same inputs on both devices."""
-    from repro_torch.core import delayed_grad, engine, mesh_runtime
+def _first_grads_err(session) -> float:
+    """The largest per-leaf relative error, card vs CPU, of a runtime's
+    first learner gradient: interval 0's trajectory at the initial
+    params (collected on the CPU) through the runtime's own ``grad_fn``
+    (the per-env tree sum for mesh and host, ``grad`` of the interval
+    loss for sync, of the stale loss for async)."""
+    from repro_torch.core import determinism, engine, rollout
     from repro_torch.core.tree import tree_map
-    session = build_session(spec, "cpu", env_backend=backend)
-    K = session.cfg.staleness
-    session.runtime.run(K + 1)
-    state = session.runtime.state()
-    grad_fn = mesh_runtime.make_grad_fn(session.policy.apply, session.cfg)
-    inputs = (delayed_grad.behavior_params(state.algo),
-              mesh_runtime.ring_read(state.buffer, K))
+    cfg, rt, apply = session.cfg, session.runtime, session.policy.apply
+    rt.init()
+    env_state, obs = rt.venv.reset(determinism.split(
+        determinism.master_key(cfg.seed ^ 0x5EED), cfg.n_envs))
+    traj, _, _ = rollout.rollout_interval(
+        apply, rt.venv, session.params, env_state, obs,
+        determinism.master_key(cfg.seed), 0,
+        rollout.RolloutConfig(cfg.alpha, cfg.n_envs))
     with engine.deterministic_cudnn():
-        cpu = grad_fn(*inputs)
-        card = grad_fn(*tree_map(lambda x: x.to("cuda"), inputs))
+        cpu = rt.grad_fn(session.params, traj)
+        card = rt.grad_fn(*tree_map(lambda x: x.to("cuda"),
+                                    (session.params, traj)))
     return max(_rel(card[k], cpu[k]) for k in cpu)
 
 
@@ -1443,17 +1508,25 @@ def _run_gridmaze(smi: str) -> dict:
                              for name, pol in GRIDMAZE_CNNS.items()}}
     for pol_name, spec in specs.items():
         for backend in ("host", "device"):
-            card = build_session(spec, "cuda", env_backend=backend).run(n)
-            cpu = build_session(spec, "cpu", env_backend=backend).run(n)
+            sessions = [build_session(spec, where, env_backend=backend)
+                        for where in ("cuda", "cpu")]
+            actions = [_record_actions(x) for x in sessions]
+            card, cpu = (x.run(n) for x in sessions)
             same = _same_streams(card, cpu)
             diff = _params_diff(card.params, cpu.params)
             held = pol_name != "cnn-atari_a2c"
             row = {"streams_equal": same, "params_max_abs_diff": diff}
             extra = ""
             if not held:
-                row["first_pass_grads_rel_err"] = _first_pass_grads(
-                    spec, backend)
-                extra = (f"; first learner pass gradients max relative err "
+                # no episode ends in this window: the streams show no
+                # action, so interval 0's (at theta_0) are held too
+                row["interval0_actions_equal"] = np.array_equal(
+                    actions[0][0], actions[1][0])
+                row["first_pass_grads_rel_err"] = _first_grads_err(
+                    build_session(spec, "cpu", env_backend=backend))
+                extra = (f"; interval 0's actions equal "
+                         f"{row['interval0_actions_equal']}; first learner "
+                         f"pass gradients max relative err "
                          f"{row['first_pass_grads_rel_err']:.3e} (tol "
                          f"{CNN_REL_TOL})")
             print(f"run: gridmaze (scenario {spec.env.kwargs}, {pol_name} "
@@ -1468,6 +1541,8 @@ def _run_gridmaze(smi: str) -> dict:
                 check(diff <= PARAMS_TOL,
                       f"gridmaze {pol_name} {backend}: params {diff}")
             else:
+                check(row["interval0_actions_equal"],
+                      f"gridmaze {pol_name} {backend}: interval 0's actions")
                 check(row["first_pass_grads_rel_err"] <= CNN_REL_TOL,
                       f"gridmaze {pol_name} {backend}: gradients {row}")
                 check(bool(torch.isfinite(torch.cat(
@@ -1569,6 +1644,323 @@ def phase_run() -> dict:
     return res
 
 
+# ------------------------------------------- host runtime, baselines
+def _host_faults(tmp: Path) -> dict:
+    """(d): an executor death and a NaN learner update on the host
+    runtime under ``max_restarts`` 2, against the fault-free fit."""
+    from repro_torch import api
+    spec = api.load(str(QUICKSTART)).replace(
+        runtime="host", intervals=8,
+        checkpoint={"dir": str(tmp / "host_clean"), "every": 2})
+    clean = api.build(spec, device="cuda").fit()
+    chaos = spec.replace(
+        checkpoint={"dir": str(tmp / "host_chaos"), "every": 2},
+        faults={"events": [{"site": "executor", "interval": 3},
+                           {"site": "learner", "interval": 4,
+                            "kind": "nan"}],
+                "max_restarts": 2, "backoff": 0.0, "backoff_cap": 0.0})
+    rep = api.build(chaos, device="cuda").fit()
+    restored = [r["restored_to"] for r in rep.recoveries]
+    failures = [r["failure"].split(":")[0] for r in rep.recoveries]
+    same = (_params_equal(rep.params, clean.params)
+            and _capsules_equal(rep.state, clean.state)
+            and np.array_equal(rep.episode_returns, clean.episode_returns)
+            and np.array_equal(rep.rewards, clean.rewards))
+    print(f"host: fault plan on the host runtime (executor exc at 3, "
+          f"learner nan at 4, a checkpoint every 2, max_restarts 2): "
+          f"restarts {rep.restarts} ({failures}), restored to {restored};"
+          f" params, capsule, episode returns and rewards equal the "
+          f"fault-free fit {same}")
+    check(rep.restarts == 2 and restored == [2, 4],
+          f"host fault plan: restarts {rep.restarts}, restored {restored}")
+    check(same, "host fault plan: the recovered fit differs")
+    return {"restarts": rep.restarts, "restored_to": restored,
+            "failures": failures, "equal": same}
+
+
+def _host_equals_mesh() -> dict:
+    """(b): host == mesh on the card, ``torch.equal``, at K 1 and 2, with
+    1 and 4 actors, with and without the football spec's step-time
+    model; the card's host run against the port's CPU host run."""
+    from repro_torch import api
+    base = api.load(str(QUICKSTART))
+    fb = api.load(str(FOOTBALL)).runtime.kwargs["host"]
+    skew = {k: fb[k] for k in ("step_time", "time_scale")}
+    rows = {}
+    for K in (1, 2):
+        mesh = build_session(base, "cuda", staleness=K).run(HOST_N)
+        for n_actors in (1, 4):
+            for skewed in (False, True):
+                kw = {"n_actors": n_actors, **(skew if skewed else {})}
+                spec = base.replace(runtime={"name": "host",
+                                             "kwargs": {"host": kw}})
+                card = build_session(spec, "cuda", staleness=K).run(HOST_N)
+                same = (_params_equal(card.params, mesh.params)
+                        and _same_streams(card, mesh)
+                        and int(card.state.step) == int(mesh.state.step))
+                cell = f"K={K} actors={n_actors}" + (" skewed" if skewed
+                                                     else "")
+                print(f"host: quickstart spec, {HOST_N} intervals, {cell}: "
+                      f"host == mesh on the card (params torch.equal, "
+                      f"streams) {same}")
+                check(same, f"host == mesh on the card: {cell}")
+                rows[cell] = same
+        cpu = build_session(base.replace(runtime="host"), "cpu",
+                            staleness=K).run(HOST_N)
+        same = _same_streams(card, cpu)
+        diff = _params_diff(card.params, cpu.params)
+        print(f"host: K={K}: card vs the port's CPU (host runtime): "
+              f"streams equal {same}; params max abs diff {diff:.3e} (tol "
+              f"{PARAMS_TOL})")
+        check(same and diff <= PARAMS_TOL, f"host K={K}: card vs CPU")
+        rows[f"K={K} card vs CPU"] = {"streams_equal": same,
+                                      "params_max_abs_diff": diff}
+    return rows
+
+
+class _ActionTap:
+    """A batched env whose every step also hands its actions to ``on``."""
+
+    def __init__(self, env, on):
+        self._env, self._on = env, on
+
+    def __getattr__(self, name):
+        return getattr(self._env, name)
+
+    def step(self, state, actions, keys):
+        self._on(actions.to("cpu", copy=True).numpy())
+        return self._env.step(state, actions, keys)
+
+
+def _record_actions(session) -> list:
+    """Collects the actions of every interval of the session's next run,
+    (alpha, n_envs) each: what a scan runtime hands its env step, what
+    the host runtime's executors wrote into the interval's slab (its
+    env step takes all rows, the unrequested ones masked)."""
+    rt, seen = session.runtime, []
+    if rt.name == "host":
+        session.on_interval(lambda m: seen.append(
+            rt._slabs.write_view(m["interval"])[0]["actions"].copy()))
+        return seen
+    steps = []
+
+    def on(actions):
+        steps.append(actions)
+        if len(steps) == rt.cfg.alpha:
+            seen.append(np.stack(steps))
+            steps.clear()
+
+    rt.venv = _ActionTap(rt.venv, on)       # before the step is built
+    return seen
+
+
+def _flipped(a: list, b: list) -> list:
+    """The intervals whose actions differ between two recorded runs."""
+    return [j for j, (x, y) in enumerate(zip(a, b))
+            if not np.array_equal(x, y)]
+
+
+def _atari_contenders() -> dict:
+    """(c): examples/atari_a2c.py's contenders and the host runtime, on
+    the card against the port's CPU. Held: the reward and done streams
+    exact, the actions of interval 0 (every contender's rollout at
+    theta_0) exact, the first learner pass's gradients at CNN_REL_TOL
+    per leaf. No episode reaches the goal in this window, so the streams
+    alone would not show the actions. After the first update the params
+    part by rounding, which rmsprop amplifies until an action flips; the
+    witness beside each contender is the CPU run again from theta_0
+    moved by one ulp: where its actions first flip, and its params'
+    distance. Printed, with tail rewards."""
+    from repro_torch import api
+    from repro_torch.core.tree import tree_map
+    rows = {}
+    for name, (label, kw) in ATARI_CONTENDERS.items():
+        spec = api.from_dict({**ATARI_SPEC, "intervals": ATARI_INTERVALS,
+                              "runtime": {"name": name, "kwargs": kw}})
+        runs = {}
+        for where in ("card", "cpu", "ulp"):
+            session = api.build(spec, device="cpu" if where != "card"
+                                else "cuda")
+            if where == "ulp":
+                session.runtime.params0 = tree_map(
+                    lambda p: torch.nextafter(p, torch.full_like(p, np.inf)),
+                    session.runtime.params0)
+            actions = _record_actions(session)
+            runs[where] = (session.run(), actions, session)
+        (card, card_a, _), (cpu, cpu_a, cpu_session), (ulp, ulp_a, _) = (
+            runs["card"], runs["cpu"], runs["ulp"])
+        check(len(card_a) == len(cpu_a) == ATARI_INTERVALS,
+              f"atari_a2c {name}: recorded {len(card_a)}, {len(cpu_a)} "
+              "intervals of actions")
+        same = _same_streams(card, cpu)
+        goals = int((np.asarray(cpu.rewards) > 0).sum())
+        flips, ulp_flips = _flipped(card_a, cpu_a), _flipped(ulp_a, cpu_a)
+        err = _first_grads_err(cpu_session)
+        diff = _params_diff(card.params, cpu.params)
+        ulp_diff = _params_diff(ulp.params, cpu.params)
+        r = card.rewards
+        tail = float(r[-max(1, len(r) // 5):].mean())
+        print(f"host: atari_a2c {label} ({name}; gridmaze, CNN 32/64/64 "
+              f"3x3 fc 128, rmsprop, alpha 5, n_envs 8, {ATARI_INTERVALS} "
+              f"intervals): card vs CPU streams equal {same} ({goals} goal "
+              f"hits); interval 0's actions equal {0 not in flips}; "
+              f"intervals with a differing action {flips} (printed); first "
+              f"learner pass gradients max relative err {err:.3e} (tol "
+              f"{CNN_REL_TOL}); params max abs diff {diff:.3e} (printed); "
+              f"tail reward/step (last 20%) {tail:+.4f}")
+        print(f"host: atari_a2c {name}: witness, the CPU run from theta_0 "
+              f"moved one ulp: intervals with a differing action "
+              f"{ulp_flips}; params max abs diff {ulp_diff:.3e}")
+        check(same, f"atari_a2c {name}: card streams differ from the CPU's")
+        check(0 not in flips, f"atari_a2c {name}: interval 0's actions "
+              "differ from the CPU's")
+        check(err <= CNN_REL_TOL, f"atari_a2c {name}: gradients {err}")
+        rows[name] = {"streams_equal": same, "goal_hits": goals,
+                      "flipped_intervals": flips, "first_grads_rel_err": err,
+                      "params_max_abs_diff": diff,
+                      "ulp_flipped_intervals": ulp_flips,
+                      "ulp_params_max_abs_diff": ulp_diff,
+                      "tail_reward": tail}
+    return rows
+
+
+def _host_memory() -> dict:
+    """The host runtime holds no more device memory after a long segment
+    than after a short one: with the atari_a2c CNN, ``memory_allocated``
+    after run(MEM_LONG) within one parameter tree of that after
+    run(MEM_SHORT). A finished learner submission kept alive would hold
+    a gradient tree and a whole DelayedGradState per interval."""
+    import gc
+    from repro_torch import api
+    spec = api.from_dict({**ATARI_SPEC, "runtime": "host"})
+    rt = api.build(spec, device="cuda").runtime
+    used, workspaces = {}, {}
+    for n in (MEM_SHORT, MEM_LONG):
+        rt.run(n)
+        gc.collect()
+        torch.cuda.synchronize()
+        # cuBLAS keeps a workspace (32 MiB under CUBLAS_WORKSPACE_CONFIG
+        # :4096:8) for every (handle, stream) it has served, and a
+        # segment's new threads may draw other handles from the pool:
+        # the workspaces go before the reading
+        before = torch.cuda.memory_allocated()
+        torch._C._cuda_clearCublasWorkspaces()
+        used[n] = torch.cuda.memory_allocated()
+        workspaces[n] = before - used[n]
+    tree = sum(p.numel() * p.element_size() for p in rt.params0.values())
+    grew = used[MEM_LONG] - used[MEM_SHORT]
+    print(f"host: device memory of the host runtime (atari_a2c CNN, "
+          f"{tree} bytes of params), cuBLAS workspaces cleared: "
+          f"allocated after run({MEM_SHORT}) {used[MEM_SHORT]}, after "
+          f"run({MEM_LONG}) {used[MEM_LONG]} bytes; grew {grew} (held "
+          f"under one parameter tree); workspaces cleared "
+          f"{workspaces[MEM_SHORT]}, {workspaces[MEM_LONG]} bytes")
+    check(grew < tree, f"host runtime memory grew {grew} bytes over "
+          f"{MEM_LONG - MEM_SHORT} more intervals")
+    return {"allocated": used, "grew": grew, "params_bytes": tree,
+            "workspaces_cleared": workspaces}
+
+
+def _host_rates(smi: str) -> dict:
+    """(e): env steps/s of the four runtimes at the quickstart spec, the
+    host runtime's profile split, and the staleness pipeline under a
+    simulated learner twice as slow as an interval."""
+    from repro_torch import api
+    from repro_torch.core.runtime_model import staleness_pipeline_runtime
+    base = api.load(str(QUICKSTART)).replace(intervals=RATE_INTERVALS)
+    n = RATE_INTERVALS
+    sps = {}
+    for name in ("host", "mesh", "sync", "async"):
+        rt = build_session(base.replace(runtime=name), "cuda").runtime
+        rt.run(n)                                   # warm-up, excluded
+        runs = [rt.run(n) for _ in range(3)]
+        check(all(_same_streams(runs[0], r) for r in runs[1:]),
+              f"rates {name}: reruns differ")
+        sps[name] = [r.sps for r in runs]
+    print(f"host: rates on {smi}: quickstart spec (catch, mlp, a2c, alpha "
+          f"{base.hts['alpha']} x {base.hts['n_envs']} envs) x {n} "
+          "intervals, env steps/s (3 runs after a warm-up): " + "; ".join(
+              f"{k} " + ", ".join(f"{x:.1f}" for x in v)
+              for k, v in sps.items()))
+    prof = build_session(base.replace(runtime={
+        "name": "host", "kwargs": {"host": {"profile": True}}}),
+        "cuda").runtime
+    prof.run(n)
+    out = prof.run(n)
+    split = dict(sorted(prof.profile.items()))
+    print(f"host: profile split on {smi} ({n} intervals, wall "
+          f"{out.wall_time:.3f} s, seconds summed over threads): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    # per-interval times from the coordinator's interval ends
+    rt = build_session(base.replace(runtime="host"), "cuda").runtime
+    rt.run(PIPE_INTERVALS)
+    stamps = []
+    rt.on_interval = lambda j, m: stamps.append(time.perf_counter())
+    t0 = time.perf_counter()
+    rt.run(PIPE_INTERVALS)
+    R = np.diff([t0] + stamps)
+    r = float(np.median(R))
+    L = 2.0 * r
+    pipe = {"interval_s": R.tolist(), "learner_time_s": L}
+    for K in (1, 2):
+        spec = base.replace(runtime={"name": "host", "kwargs": {
+            "host": {"learner_time": L}}})
+        rt = build_session(spec, "cuda", staleness=K).runtime
+        stamps = []
+        rt.on_interval = lambda j, m: stamps.append(time.perf_counter())
+        t0 = time.perf_counter()
+        wall = rt.run(PIPE_INTERVALS).wall_time
+        rollout = stamps[-1] - t0
+        # the model's t_end[-1] (the last interval's end) is its total
+        # with the last K learner passes taken out: no interval waits on
+        # them
+        Rs, Ls = np.full(PIPE_INTERVALS, r), np.full(PIPE_INTERVALS, L)
+        drained = staleness_pipeline_runtime(Rs, Ls, K)
+        Ls[-K:] = 0.0
+        ends = staleness_pipeline_runtime(Rs, Ls, K)
+        pipe[f"K={K}"] = {"wall_s": wall, "rollout_end_s": rollout,
+                          "model_s": drained, "model_rollout_end_s": ends}
+        print(f"host: pipeline on {smi}, K={K}, learner_time {L:.4f} s "
+              f"(twice the median interval {r:.4f} s), {PIPE_INTERVALS} "
+              f"intervals: the last interval ended at {rollout:.3f} s "
+              f"(staleness_pipeline_runtime's t_end {ends:.3f} s); the run, "
+              f"learner backlog included, {wall:.3f} s (model "
+              f"{drained:.3f} s)")
+    # a serial learner slower than the rollout bounds the whole run at
+    # every K (the model gives K=1 and K=2 the same total); what K=2
+    # buys is one more interval of rollout ahead of it, so its last
+    # interval ends one learner_time sooner
+    check(pipe["K=2"]["rollout_end_s"] < pipe["K=1"]["rollout_end_s"],
+          f"pipeline: K=2's rollout did not end before K=1's {pipe}")
+    return {"sps": sps, "profile": split, "pipeline": pipe}
+
+
+def phase_host() -> dict:
+    """The host runtime and the baselines on the card (phase 8 of the
+    docstring). The kernel launch counts are zeroed before and read
+    after: these paths launch none of the port's kernels."""
+    import tempfile
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    zero_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as d:
+        tmp = Path(d)
+        launcher = _run_launcher(tmp, "host")
+        launcher.pop("straight")
+        res = {"launcher": launcher, "faults": _host_faults(tmp)}
+    res["host_equals_mesh"] = _host_equals_mesh()
+    res["atari_a2c"] = _atari_contenders()
+    res["memory"] = _host_memory()
+    res["rates"] = _host_rates(smi)
+    launches = read_launches()
+    print(f"host: launches of the port's kernels on the host runtime and "
+          f"baselines paths {launches}")
+    _expect(launches, {}, "host runtime and baselines paths")
+    print(f"host: phase {time.perf_counter() - t0:.1f} s")
+    print("host: " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1580,6 +1972,7 @@ def main() -> int:
     runs = {arch: phase_serve(arch) for arch in SERVE_PATHS}
     phase_train()
     phase_run()
+    phase_host()
 
     smi = nvidia_smi()
     print(f"times on {smi}:")

@@ -4,7 +4,8 @@ Counterpart of ``repro/algorithms/vtrace.py``. A2C on off-policy data
 with one correction mode each: ``none``, ``epsilon`` (GA3C's
 pi(a|s) + eps inside the log), ``trunc_is`` (truncated importance
 sampling) and ``vtrace`` (IMPALA's targets, ``core/vtrace.py``).
-Registered: ``vtrace``, ``epsilon`` and ``trunc_is``.
+Registered: ``vtrace``, ``epsilon`` and ``trunc_is``; ``make_correction``
+builds any mode from an ``AsyncConfig`` for the async baseline.
 """
 from __future__ import annotations
 
@@ -69,6 +70,13 @@ class StaleCorrected:
         st = losses.a2c_loss(logits, values, traj["actions"], adv, rets,
                              cfg.value_coef, cfg.entropy_coef)
         return st.total, st
+
+
+def make_correction(acfg) -> StaleCorrected:
+    """Instance from an AsyncConfig-shaped object (correction, epsilon,
+    rho_max)."""
+    return StaleCorrected(acfg.correction, epsilon=acfg.epsilon,
+                          rho_max=acfg.rho_max)
 
 
 base.register(StaleCorrected("vtrace"))

@@ -12,15 +12,21 @@ queue 1 item that brings it; nothing runs in its place.
 and adds ``fit`` (checkpointed training through ``core/trainer.Trainer``
 per the spec's CheckpointSpec) and ``on_interval`` observers, which
 receive ``{"interval": j, "rewards": (alpha, n_envs), "dones": ...}``
-per completed interval after the runtime returns (the ported runtime
-has no live coordinator).
+per completed interval: live from the host runtime's coordinator, right
+after the runtime returns for the fused runtimes (the same sequence
+either way).
+
+Live objects that cannot ride in a JSON spec (a custom ``HostConfig``)
+are passed as ``build(spec, host=...)`` overrides; a spec's JSON
+``host``/``acfg`` runtime kwargs become ``HostConfig`` /
+``StepTimeModel`` / ``AsyncConfig`` here.
 
 Runtimes run on ``cuda`` unless ``build(spec, device="cpu")``; params
 are drawn on the CPU from ``policy.init(master_key(params_seed))``.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch import algorithms, envs, models, optim, resolve_device
 from repro_torch.api import spec as spec_mod
@@ -32,9 +38,6 @@ from repro_torch.envs.interfaces import Env
 # what the reference builds and the port does not yet: name -> the
 # ROADMAP queue 1 item that brings it
 UNPORTED_RUNTIMES = {
-    "host": "item 4 (the threaded host runtime)",
-    "sync": "item 4 (the baselines)",
-    "async": "item 4 (the baselines)",
     "sharded": "item 5 (the data-parallel runtime)",
     "serve": "item 6 (serving)",
     "stream": "item 7 (LLM-policy training)",
@@ -46,6 +49,10 @@ UNPORTED_ENVS = {
 }
 
 
+# runtimes that take spec.batch (the reference's "sharded" among them)
+_BATCH_RUNTIMES = ("host", "mesh", "sharded")
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet: ROADMAP queue 1, {item}")
@@ -54,6 +61,49 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 def runtime_names() -> list:
     """Every runtime name a spec may carry, ported or not."""
     return sorted(set(engine.runtime_names()) | set(UNPORTED_RUNTIMES))
+
+
+def _decode_steptime(value, where: str):
+    """JSON -> StepTimeModel for HostConfig duration fields; floats pass
+    through (constant durations)."""
+    if isinstance(value, dict):
+        from repro_torch.envs.steptime import StepTimeModel
+        unknown = set(value) - {"shape", "rate", "base"}
+        if unknown:
+            raise ValueError(
+                f"unknown StepTimeModel field(s) {sorted(unknown)} in "
+                f"{where}; known: ['shape', 'rate', 'base']")
+        return StepTimeModel(**value)
+    return value
+
+
+def _decode_runtime_kwargs(name: str, kwargs: Dict[str, Any]) -> dict:
+    """The JSON-able runtime kwargs a spec carries as the config objects
+    the runtime constructors take (HostConfig / AsyncConfig /
+    StepTimeModel)."""
+    out = dict(kwargs)
+    if name == "host":
+        host = out.get("host")
+        if isinstance(host, dict):
+            from repro_torch.core.host_runtime import HostConfig
+            host = dict(host)
+            for key in ("step_time", "learner_time"):
+                if key in host:
+                    host[key] = _decode_steptime(host[key],
+                                                 f"runtime.kwargs.host.{key}")
+            try:
+                out["host"] = HostConfig(**host)
+            except TypeError as e:
+                raise ValueError(f"bad host runtime kwargs: {e}") from None
+    elif name == "async":
+        acfg = out.get("acfg")
+        if isinstance(acfg, dict):
+            from repro_torch.core.baselines import AsyncConfig
+            try:
+                out["acfg"] = AsyncConfig(**acfg)
+            except TypeError as e:
+                raise ValueError(f"bad async runtime kwargs: {e}") from None
+    return out
 
 
 def build(spec: ExperimentSpec, device="cuda",
@@ -113,15 +163,28 @@ def build(spec: ExperimentSpec, device="cuda",
     cfg = spec.hts_config()
     params = policy.init(determinism.master_key(spec.params_seed))
 
-    # every ported runtime takes the batch geometry (spec.batch)
-    rkw = {"batch": spec.batch, **spec.runtime.kwargs, **runtime_overrides}
+    rkw = _decode_runtime_kwargs(rt_name, spec.runtime.kwargs)
+    rkw.update(runtime_overrides)
+    # the batch geometry threads into the runtimes that keep the
+    # scale-out determinism contract; the baselines have no geometry to
+    # factorize, so a non-default batch there is a spec error
+    if rt_name in _BATCH_RUNTIMES:
+        rkw.setdefault("batch", spec.batch)
+    elif not spec.batch.is_default:
+        raise ValueError(
+            f"runtime {rt_name!r} does not implement the batch-geometry "
+            f"contract; non-default spec.batch pairs with "
+            f"{sorted(_BATCH_RUNTIMES + ('stream',))}")
 
-    # one injector for the session: the trainer's checkpoint site (the
-    # only fault site the ported runtime has) and its supervision
+    # one injector spans the session: the host runtime's worker pools
+    # and learner, and the trainer's checkpoint writes and supervision
     injector = None
     if spec.faults.events or spec.faults.max_restarts:
         from repro_torch.faults import FaultInjector
         injector = FaultInjector(spec.faults)
+    if injector is not None and rt_name == "host":
+        # the one training runtime with live fault sites (worker pools)
+        rkw.setdefault("faults", injector)
 
     runtime = engine.make_runtime(rt_name, env, policy.apply, params, opt,
                                   cfg, device=device, **rkw)
@@ -164,9 +227,19 @@ class Session:
 
     def _run_observed(self, fn: Callable[[], RunResult],
                       start: int) -> RunResult:
-        out = fn()
-        for i, metrics in out.interval_metrics():
-            self._emit(start + i, metrics)
+        # a runtime with a live coordinator (host) calls the observers
+        # as each interval completes; the others after they return
+        live = self._observers and hasattr(self.runtime, "on_interval")
+        if live:
+            self.runtime.on_interval = self._emit
+        try:
+            out = fn()
+        finally:
+            if live:
+                self.runtime.on_interval = None
+        if self._observers and not live:
+            for i, metrics in out.interval_metrics():
+                self._emit(start + i, metrics)
         return out
 
     # -------------------------------------------------- engine contract

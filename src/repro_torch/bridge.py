@@ -189,14 +189,28 @@ def env_state_from_jax(state: dict, device=None) -> dict:
     return {k: to_torch(v, device) for k, v in state.items()}
 
 
+def _algo_from_jax(algo, device=None):
+    """A capsule's ``algo``: the HTS family's ``DelayedGradState`` (a
+    NamedTuple), or a baseline's plain tuple, ``(params, opt_state)``
+    for sync and ``(params, opt_state, history)`` for async, the
+    history a params-shaped (staleness, ...) ring."""
+    if hasattr(algo, "_fields"):
+        return delayed_grad_from_jax(algo, device)
+    params, opt_state, *history = algo
+    return (policy_params_from_jax(params, device),
+            opt_state_from_jax(opt_state, device),
+            *(policy_params_from_jax(h, device) for h in history))
+
+
 def train_state_from_jax(state, device=None):
-    """A reference ``TrainState`` capsule of the HTS family (numpy
-    leaves) as the port's, which ``run_from`` continues: the leaves keep
-    their ``jax.tree_util`` order (``tree_leaves``) and dtypes."""
+    """A reference ``TrainState`` capsule (numpy leaves) of the HTS
+    family or of a baseline as the port's, which ``run_from`` continues:
+    the leaves keep their ``jax.tree_util`` order (``tree_leaves``) and
+    dtypes."""
     from repro_torch.core.engine import TrainState
     algo, env_state, obs, buffer, interval = state
     return TrainState(
-        algo=delayed_grad_from_jax(algo, device),
+        algo=_algo_from_jax(algo, device),
         env_state=env_state_from_jax(env_state, device),
         obs=to_torch(obs, device),
         buffer={k: to_torch(v, device) for k, v in buffer.items()},
@@ -216,8 +230,8 @@ def policy_params_to_reference(tree: dict) -> dict:
 
 
 def train_state_to_reference(state):
-    """A capsule of the HTS family (the port's ``TrainState``) as numpy
-    leaves in the reference's layout, with the same NamedTuple types, so
-    ``checkpoint.io`` writes what the reference would: the inverse of
-    ``train_state_from_jax``."""
+    """A capsule (the port's ``TrainState``, of the HTS family or of a
+    baseline) as numpy leaves in the reference's layout, with the same
+    NamedTuple types, so ``checkpoint.io`` writes what the reference
+    would: the inverse of ``train_state_from_jax``."""
     return _map_params_like(state, policy_params_to_reference, to_numpy)

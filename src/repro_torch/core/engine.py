@@ -11,8 +11,10 @@ Counterpart of ``repro/core/engine.py``:
     bit-identical to ``run(a)``, ``state()``, ``run_from(state, b)``;
   * the registry   — ``make_runtime(name, env, policy_apply, params, opt,
     cfg, device=None, **kwargs)``. Ported: ``mesh`` (the fused interval,
-    ``core/mesh_runtime.py``). The host, sharded, sync, async and serve
-    runtimes wait for later slices (ROADMAP queue 1).
+    ``core/mesh_runtime.py``), ``host`` (the threaded runtime,
+    ``core/host_runtime.py``), ``sync`` and ``async`` (the baselines,
+    ``core/baselines.py``). The sharded and serve runtimes wait for later
+    slices (ROADMAP queue 1).
 
 Runtimes run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -143,13 +145,16 @@ class ScanRuntimeBase:
     """Shared plumbing of the interval runtimes: build once, carry reset
     per ``run``, timing and RunResult assembly. Subclasses fill in
 
-      _build()            closures built once (step, learner, drain)
+      _build()            closures built once (step, learner, drain,
+                          ``grad_fn``: the learner's gradient)
       _initial_carry()    fresh training state
       _step(carry)        one interval: (carry', metrics)
       _result_state(c)    (params, state) out of the final carry
       _finalize(c)        reporting only: consume the unconsumed ring
 
-    The carry is ``(algo, env_state, obs, buffer, j)``. ``state()`` and
+    The HTS carry is ``(algo, env_state, obs, buffer, j)``; a runtime
+    whose carry differs (the baselines) maps it to and from the capsule
+    in ``_carry_to_state`` / ``_state_to_carry``. ``state()`` and
     ``run_from`` copy what they hand over, as the reference does because
     JAX donates its carry: the port writes no carry tensor in place, and
     the copies keep it so should one ever do."""
@@ -183,6 +188,15 @@ class ScanRuntimeBase:
     def _finalize(self, carry):
         return carry
 
+    # ------------------------------------------------- continuation hooks
+    def _carry_to_state(self, carry) -> TrainState:
+        """The HTS carry is the capsule's fields in order; the baselines
+        override both hooks."""
+        return TrainState(*carry)
+
+    def _state_to_carry(self, state: TrainState):
+        return tuple(state)
+
     # --------------------------------------------------------- plumbing
     def init(self) -> None:
         if not self._built:
@@ -193,7 +207,7 @@ class ScanRuntimeBase:
     def state(self) -> TrainState:
         if self.carry is None:
             self.init()
-        return TrainState(*_clone(self.carry))
+        return _clone(self._carry_to_state(self.carry))
 
     def run(self, n_intervals: int) -> RunResult:
         self.init()
@@ -208,8 +222,8 @@ class ScanRuntimeBase:
         on_device = tree_map(lambda x: x.to(self.device, copy=True),
                              (algo, env_state, obs, buf))
         # the interval counter stays on the host (TrainState)
-        self.carry = (*on_device, torch.as_tensor(
-            j, dtype=torch.int32).to("cpu", copy=True))
+        j = torch.as_tensor(j, dtype=torch.int32).to("cpu", copy=True)
+        self.carry = self._state_to_carry(TrainState(*on_device, j))
         return self._segment(n_intervals, finalize)
 
     def _segment(self, n_intervals: int, finalize: bool = True) -> RunResult:
@@ -244,7 +258,10 @@ _REGISTRY: Dict[str, Callable[..., Runtime]] = {}
 
 # name -> module that registers it (imported on first lookup)
 _LAZY: Dict[str, str] = {
+    "host": "repro_torch.core.host_runtime",
     "mesh": "repro_torch.core.mesh_runtime",
+    "sync": "repro_torch.core.baselines",
+    "async": "repro_torch.core.baselines",
 }
 
 

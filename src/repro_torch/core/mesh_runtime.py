@@ -36,12 +36,21 @@ import torch
 from repro_torch import algorithms
 from repro_torch.core import delayed_grad, determinism
 from repro_torch.core.batch import BatchConfig, pairwise_tree_sum
+from repro_torch.core.buffers import device_rollout_buffer
 from repro_torch.core.engine import (HTSConfig, RunResult,  # noqa: F401
                                      ScanRuntimeBase, register_runtime)
 from repro_torch.core.rollout import RolloutConfig, rollout_interval
 from repro_torch.core.tree import tree_map
 from repro_torch.envs.device import batched_env
 from repro_torch.optim import Optimizer
+
+
+def _interval_loss(policy_apply, params, traj, cfg: HTSConfig):
+    """Loss over one interval's trajectory (alpha, n_envs, ...), resolved
+    through the algorithm registry (the baselines differentiate it over
+    the whole batch at once)."""
+    return algorithms.get_algorithm(cfg.algorithm).loss(
+        policy_apply, params, traj, cfg)
 
 
 def _split_envs(traj):
@@ -229,19 +238,8 @@ def init_carry(policy_params, opt: Optimizer, env, cfg: HTSConfig,
     env_state, obs = env.reset(keys)
     dg = delayed_grad.init(tree_map(torch.clone, policy_params), opt,
                            staleness=cfg.staleness)
-    A, N = cfg.alpha, cfg.n_envs
-
-    def zeros(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=device)
-
-    zero_traj = {
-        "obs": zeros((A,) + tuple(obs.shape), obs.dtype),
-        "actions": zeros((A, N), torch.int32),
-        "rewards": zeros((A, N), torch.float32),
-        "dones": torch.ones((A, N), dtype=torch.float32, device=device),
-        "behavior_logprob": zeros((A, N), torch.float32),
-        "bootstrap_obs": torch.zeros_like(obs),
-    }
+    zero_traj = device_rollout_buffer(cfg.n_envs, cfg.alpha, obs.shape[1:],
+                                      obs.dtype, device=device)
     if cfg.staleness > 1:
         zero_traj = tree_map(lambda x: torch.stack([x] * cfg.staleness),
                              zero_traj)
@@ -279,6 +277,8 @@ class MeshRuntime(ScanRuntimeBase):
         learn = make_learner_update(self.policy_apply, self.opt, self.cfg,
                                     grad_accumulation=chunks)
         self._final_fn = make_ring_drain(learn, self.cfg.staleness)
+        self.grad_fn = make_grad_fn(self.policy_apply, self.cfg,
+                                    grad_accumulation=chunks)
 
     def _initial_carry(self):
         return init_carry(self.params0, self.opt, self.venv, self.cfg,

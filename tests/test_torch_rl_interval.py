@@ -175,11 +175,14 @@ def test_episode_returns_match_jax():
 
 
 def test_runtime_registry():
-    assert engine.runtime_names() == ["mesh"]
-    assert engine.training_runtime_names() == ["mesh"]
+    names = ["async", "host", "mesh", "sync"]
+    assert engine.runtime_names() == names
+    assert engine.training_runtime_names() == names
     assert engine.get_runtime("mesh") is tmesh.MeshRuntime
-    with pytest.raises(KeyError, match="registered: \\['mesh'\\]"):
-        engine.get_runtime("host")
+    assert engine.get_runtime("host").name == "host"
+    with pytest.raises(KeyError, match="registered: \\['async', 'host', "
+                       "'mesh', 'sync'\\]"):
+        engine.get_runtime("sharded")
     with pytest.raises(ValueError, match="staleness"):
         port_runtime(staleness=0)
     with pytest.raises(ValueError, match="unknown env_backend"):
