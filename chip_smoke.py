@@ -102,6 +102,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    before K=1's (a serial learner slower than the rollout bounds the
    whole run at every K, so the totals are printed, not compared). The
    port's kernels launch 0 times over all of it.
+9. data parallelism, serving and tenancy (``phase_scale``): (a)
+   ``python -m repro_torch.launch.distributed --spec
+   examples/specs/quickstart.json`` as two ranks on the one card (the
+   default backend is then gloo, and the gradient sums travel through
+   the host) and as one rank (nccl): every rank's params digest equals
+   the 1-process ``mesh`` run's; ``examples/atari_a2c.py``'s workload
+   (the paper CNN's widths on gridmaze) sharded over two processes at
+   grad_accumulation 1 and 2, a ``mesh`` capsule continued on two ranks
+   and a two-rank capsule continued on ``mesh``, each ``torch.equal``
+   to the straight mesh run, streams equal; env steps/s of mesh, R=1 and
+   R=2; (b) ``python -m repro_torch.launch.serve --spec
+   examples/specs/quickstart.json --requests 500 --rate 2000`` as typed
+   (p50, p99, QPS); for the mlp and the atari_a2c CNN one (obs, seed) at
+   every row of a full dispatch and in three batch compositions answers
+   one action and logprob bit for bit, and the card's actions equal the
+   port's CPU server's on fixed seeds; (c) ``python -m
+   repro_torch.launch.pool --spec examples/specs/pool_a.json --spec
+   examples/specs/pool_b.json --digest --check-solo`` exits 0,
+   ``pool.serve()`` answers as each tenant's solo server, and the pool's
+   aggregate env steps/s at max_concurrency 1 and 2 with the Jain
+   index. The port's kernels launch 0 times in this process over all of
+   it.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Needs CUDA; imports nothing of jax.
@@ -318,6 +340,14 @@ ATARI_INTERVALS = 20
 MEM_SHORT, MEM_LONG = 5, 25          # host runtime's memory, intervals
 RATE_INTERVALS = 10
 PIPE_INTERVALS = 6
+
+# data parallelism, serving and tenancy (phase_scale): the sharded CNN
+# runs' intervals (a capsule handed over at half of them); the serving
+# launcher's load; the card-vs-CPU serving seeds
+SHARD_INTERVALS = 10
+SERVE_LOAD = ("--requests", "500", "--rate", "2000")
+SERVE_SEEDS = 16
+POOL_A = ROOT / "examples" / "specs" / "pool_a.json"
 
 
 def check(cond: bool, what: str) -> None:
@@ -1961,6 +1991,335 @@ def phase_host() -> dict:
     return res
 
 
+# ---------------------------------------------- data parallel, serving
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _processes(argvs: list, what: str, tag: str) -> list:
+    """``python ARGV`` for each argv, all started together from the
+    checkout, as a user starts them; their output printed, a non-zero
+    exit or a hang past 600 s a failure. Every process is waited for (or
+    killed) before this returns."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for argv in argvs]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for argv, proc, (out, err) in zip(argvs, procs, outs):
+        print(f"{tag}: {what}: python {' '.join(argv)} -> exit "
+              f"{proc.returncode} ({time.perf_counter() - t0:.1f}s for all)")
+        for line in out.splitlines():
+            print(f"  | {line}")
+        check(proc.returncode == 0,
+              f"{what} exited {proc.returncode}: {err[-3000:]}")
+    return [out for out, _ in outs]
+
+
+def _atari_spec(**batch):
+    """examples/atari_a2c.py's workload (gridmaze, the paper CNN's
+    widths, a2c, rmsprop, alpha 5 x 8 envs) with a batch geometry."""
+    from repro_torch import api
+    return api.from_dict({**ATARI_SPEC, "batch": batch})
+
+
+def _scale_worker(rank: int, tmp: str) -> None:
+    """One of the two ranks of ``_scale_sharded`` (its own process, gloo
+    on the one card): the atari_a2c workload sharded R=2 at
+    grad_accumulation 1 and 2, the mesh capsule continued, and a sharded
+    capsule handed back. Results go to ``tmp/rank<rank>.pt``."""
+    from repro_torch.core import distributed
+    from repro_torch.core.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = distributed.initialize(f"file://{tmp}/init", 2, rank,
+                                     device="cuda")
+    check(backend == "gloo", f"two ranks on one card took {backend}")
+    n, half = SHARD_INTERVALS, SHARD_INTERVALS // 2
+    cpu = lambda tree: tree_map(lambda x: x.cpu(), tree)   # noqa: E731
+    out = {"backend": backend}
+    for A in (1, 2):
+        spec = _atari_spec(n_replicas=2, grad_accumulation=A)
+        rt = build_session(spec.replace(runtime="sharded"), "cuda").runtime
+        r = rt.run(n)
+        # the rerun's rate: the first run pays the process's warm-up
+        again = rt.run(n)
+        check(_params_equal(r.params, again.params),
+              f"sharded R=2 A={A}: a rerun differs")
+        out[f"A{A}"] = {"params": cpu(r.params), "rewards": r.rewards,
+                        "dones": r.dones, "sps": again.sps}
+    session = build_session(_atari_spec(n_replicas=2).replace(
+        runtime="sharded"), "cuda")
+    check(session.runtime.n_shards == 2, "the worker's runtime is not R=2")
+    cap = torch.load(f"{tmp}/mesh_capsule.pt", weights_only=False)
+    out["from_mesh"] = cpu(session.run_from(cap, n - half).params)
+    session.run(half)
+    out["capsule"] = cpu(session.state())
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def _scale_sharded(smi: str) -> dict:
+    """(a): the launcher as two gloo ranks on the card and as one nccl
+    rank, against the mesh run's digest; the atari_a2c CNN sharded R=2
+    (two processes) against mesh, ``torch.equal``; capsules across
+    replica counts; env steps/s of R=1 and R=2 beside mesh."""
+    import tempfile
+    from repro_torch import api
+    from repro_torch.launch.distributed import params_digest
+    spec = api.load(str(QUICKSTART))
+    mesh = build_session(spec, "cuda").run(spec.intervals)
+    want = params_digest(mesh.params)
+    res = {"quickstart": {"mesh_sps": mesh.sps}}
+    for n_proc, backend, route in ((2, "gloo", "host"), (1, "nccl", "device")):
+        port = _free_port()
+        outs = _processes(
+            [["-m", "repro_torch.launch.distributed", "--spec",
+              str(QUICKSTART), "--coordinator", f"127.0.0.1:{port}",
+              "--num-processes", str(n_proc), "--process-id", str(i)]
+             for i in range(n_proc)],
+            f"{n_proc} rank(s) on the card", "scale")
+        lines = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+        same = all(x["params_sha256"] == want for x in lines)
+        print(f"scale: launcher, {n_proc} rank(s), backend "
+              f"{[x['backend'] for x in lines]}, gradient gather "
+              f"{[x['gather'] for x in lines]}: digests equal the 1-process "
+              f"mesh run's {want[:16]}... {same}")
+        check(same, f"launcher {n_proc} ranks: digests {lines} != {want}")
+        check(all(x["backend"] == backend and x["gather"] == route
+                  for x in lines), f"launcher {n_proc} ranks: {lines}")
+        res["quickstart"][f"R={n_proc}_sps"] = [x["sps"] for x in lines]
+
+    n, half = SHARD_INTERVALS, SHARD_INTERVALS // 2
+    mesh_rt = build_session(_atari_spec(), "cuda").runtime
+    straight = mesh_rt.run(n)
+    r1_rt = build_session(_atari_spec().replace(runtime="sharded"),
+                          "cuda").runtime
+    r1 = r1_rt.run(n)
+    check(_params_equal(r1.params, straight.params)
+          and _same_streams(r1, straight),
+          "sharded without a process group differs from mesh")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as tmp:
+        first = build_session(_atari_spec(), "cuda")
+        first.run(half)
+        torch.save(first.state(), f"{tmp}/mesh_capsule.pt")
+        _processes([["-c", f"import chip_smoke as c; c._scale_worker({i}, "
+                           f"{tmp!r})"] for i in range(2)],
+                   "atari_a2c sharded R=2 ranks", "scale")
+        ranks = [torch.load(f"{tmp}/rank{i}.pt", weights_only=False)
+                 for i in range(2)]
+    cells = {}
+    for A in (1, 2):
+        got = [r[f"A{A}"] for r in ranks]
+        eq = all(_params_equal(g["params"], straight.params)
+                 and _same_streams(_SavedStreams(g["rewards"], g["dones"]),
+                                   straight) for g in got)
+        cells[f"R=2,A={A}"] = eq
+    cells["mesh capsule -> sharded R=2"] = all(
+        _params_equal(r["from_mesh"], straight.params) for r in ranks)
+    back = build_session(_atari_spec(), "cuda").run_from(ranks[0]["capsule"],
+                                                         n - half)
+    cells["sharded R=2 capsule -> mesh"] = _params_equal(back.params,
+                                                         straight.params)
+    print(f"scale: atari_a2c (gridmaze, CNN {ATARI_SPEC['policy']['kwargs']},"
+          f" alpha {ATARI_SPEC['hts']['alpha']} x "
+          f"{ATARI_SPEC['hts']['n_envs']} envs, {n} intervals, capsules at "
+          f"{half}) sharded against mesh on the card, torch.equal params and "
+          f"equal streams: {json.dumps(cells)}; sharded with no group "
+          "equals mesh True")
+    check(all(cells.values()), f"sharded vs mesh on the card: {cells}")
+    # rates from reruns: each first run paid its process's warm-up
+    mesh_sps, r1_sps = mesh_rt.run(n).sps, r1_rt.run(n).sps
+    res["atari_a2c"] = {
+        "cells": cells, "mesh_sps": mesh_sps, "R=1_sps": r1_sps,
+        "R=2_sps": {f"A={A}": [r[f"A{A}"]["sps"] for r in ranks]
+                    for A in (1, 2)}}
+    print(f"scale: rates on {smi}, env steps/s (each rank counts the global "
+          f"env steps; the two ranks share the one card): quickstart mesh "
+          f"{res['quickstart']['mesh_sps']:.1f}, R=1 (nccl) "
+          f"{res['quickstart']['R=1_sps']}, R=2 (gloo) "
+          f"{res['quickstart']['R=2_sps']} (each the first run of its "
+          f"process); atari_a2c, a rerun each: mesh {mesh_sps:.1f}, "
+          f"sharded R=1 {r1_sps:.1f}, R=2 {res['atari_a2c']['R=2_sps']}")
+    return res
+
+
+@dataclasses.dataclass
+class _SavedStreams:
+    """A rank's saved streams, as ``_same_streams`` reads them."""
+    rewards: np.ndarray
+    dones: np.ndarray
+
+
+def _staged(session, reqs: list) -> list:
+    """``reqs`` (obs, seed) queued on an unstarted server of the session,
+    in order, so that one dispatch takes them all; their results."""
+    srv = session.serve(start=False)
+    futs = [srv.submit(o, seed=sd) for o, sd in reqs]
+    srv.start()
+    try:
+        return [f.result(timeout=120) for f in futs]
+    finally:
+        srv.stop()
+
+
+def _serve_rows() -> dict:
+    """(b): the same (obs, seed) at every row of a full dispatch and in
+    three batch compositions gives one action and logprob, bit for bit,
+    for the mlp and the atari_a2c CNN; the card's actions equal the
+    port's CPU server's on fixed seeds."""
+    from repro_torch import api
+    from repro_torch.serve.loadgen import reset_obs
+    from repro_torch.serve.server import PolicyServer, obs_template
+    specs = {"mlp": api.load(str(QUICKSTART)),
+             "cnn-atari_a2c": _atari_spec()}
+    rows = {}
+    for name, spec in specs.items():
+        session = build_session(spec, "cuda")
+        B = spec.serve.max_batch
+        obs = reset_obs(session.env, 2 * B, 0)
+        probe = (obs[0], 7)
+        fill = [(obs[1 + i], 100 + i) for i in range(B - 1)]
+        other = [(obs[B + i], 500 + i) for i in range(B - 1)]
+        got = {}
+        for p in range(B):
+            out = _staged(session, fill[:p] + [probe] + fill[p:])[p]
+            check(out.batch_size == B, f"serve {name}: row {p} batch "
+                  f"{out.batch_size}")
+            got[f"row {p}"] = out
+        got["alone"] = _staged(session, [probe])[0]
+        got["half, other requests"] = _staged(
+            session, other[:B // 2 - 1] + [probe])[-1]
+        got["full, other requests"] = _staged(session, [probe] + other)[0]
+        ref = got["row 0"]
+        bad = [k for k, v in got.items()
+               if (v.action, v.logprob) != (ref.action, ref.logprob)]
+        print(f"serve {name}: one (obs, seed) at each of the {B} rows of a "
+              f"full dispatch and in 3 compositions (alone, half with other "
+              f"requests, full with other requests): action {ref.action}, "
+              f"logprob {ref.logprob!r}; positions that differ: {bad}")
+        check(not bad, f"serve {name}: rows differ {bad}: "
+              + "; ".join(f"{k} {got[k]}" for k in bad))
+        cpu = PolicyServer(session.policy.apply, session.params,
+                           obs_like=obs_template(session.env),
+                           serve=spec.serve, seed=session.cfg.seed,
+                           device="cpu").start()
+        card = session.serve()
+        try:
+            pairs = [(card.act(obs[i], seed=i, timeout=120),
+                      cpu.act(obs[i], seed=i, timeout=120))
+                     for i in range(SERVE_SEEDS)]
+        finally:
+            card.stop()
+            cpu.stop()
+        same = all(a.action == b.action for a, b in pairs)
+        lp = max(abs(a.logprob - b.logprob) for a, b in pairs)
+        print(f"serve {name}: card vs CPU server on seeds 0..{SERVE_SEEDS - 1}"
+              f": actions equal {same}; logprob max abs diff {lp:.3e}")
+        check(same, f"serve {name}: card actions differ from the CPU's")
+        rows[name] = {"positions_differ": bad, "card_vs_cpu_actions": same,
+                      "logprob_diff": lp}
+    return rows
+
+
+def _scale_serve(smi: str) -> dict:
+    outs = _processes([["-m", "repro_torch.launch.serve", "--spec",
+                        str(QUICKSTART), *SERVE_LOAD]],
+                      "policy serving as typed", "scale")
+    metrics = dict(re.findall(r"^(serve_\w+)=(\S+)$", outs[0], re.M))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    check(metrics.get("serve_shed") == 0.0 and metrics["serve_qps"] > 0,
+          f"serve launcher: {metrics}")
+    print(f"scale: serving on {smi}: quickstart policy, {SERVE_LOAD}: p50 "
+          f"{metrics['serve_p50_ms']:.3f} ms, p99 "
+          f"{metrics['serve_p99_ms']:.3f} ms, {metrics['serve_qps']:.1f} "
+          f"QPS, mean batch {metrics['serve_mean_batch']:.2f}")
+    return {"launcher": metrics, "rows": _serve_rows()}
+
+
+def _scale_pool(smi: str) -> dict:
+    """(c): the pool launcher's solo check; pool.serve() against each
+    tenant's solo server; aggregate env steps/s at max_concurrency 1 and
+    2 with the Jain index."""
+    from repro_torch import api
+    from repro_torch.launch.pool import jain_index
+    from repro_torch.serve.loadgen import reset_obs
+    from repro_torch.serve.server import PolicyServer, obs_template
+    _processes([["-m", "repro_torch.launch.pool", "--spec", str(POOL_A),
+                 "--spec", str(POOL_B), "--digest", "--check-solo"]],
+               "pool launcher", "scale")
+    specs = [api.load(str(POOL_A)), api.load(str(POOL_B))]
+    pool = api.Session.pool(specs, device="cuda")
+    results = pool.run()
+    server = pool.serve()
+    same = {}
+    try:
+        for name in pool.tenants():
+            s = pool._get(name).session
+            obs = reset_obs(s.env, 4, 1)
+            solo = PolicyServer(s.policy.apply, results[name].params,
+                                obs_like=obs_template(s.env),
+                                serve=s.spec.serve, seed=s.cfg.seed,
+                                device="cuda").start()
+            try:
+                same[name] = all(
+                    server.act(obs[i], seed=i, model=name, timeout=120)
+                    == solo.act(obs[i], seed=i, timeout=120)
+                    for i in range(4))
+            finally:
+                solo.stop()
+    finally:
+        server.stop()
+    print(f"scale: pool.serve() answers as each tenant's solo server: {same}")
+    check(all(same.values()), f"pool.serve: {same}")
+    rates = {}
+    for mc in (1, 2):
+        pool = api.Session.pool(specs, max_concurrency=mc, device="cuda")
+        t0 = time.perf_counter()
+        res = pool.run()
+        wall = time.perf_counter() - t0
+        counts = pool.schedule_counts()
+        jain = jain_index(counts[n] / pool._get(n).weight for n in res)
+        rates[f"max_concurrency={mc}"] = {
+            "sps": sum(r.steps for r in res.values()) / wall,
+            "jain": jain}
+    print(f"scale: pool rates on {smi} (pool_a + pool_b, "
+          f"{specs[0].intervals} intervals each): aggregate env steps/s "
+          + "; ".join(f"{k} {v['sps']:.1f} (Jain {v['jain']:.3f})"
+                      for k, v in rates.items()))
+    return {"serve_equal": same, "rates": rates}
+
+
+def phase_scale() -> dict:
+    """Data parallelism, serving and tenancy on the card (phase 9 of the
+    docstring). The kernel launch counts are zeroed before and read
+    after: these paths launch none of the port's kernels."""
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    zero_launches()
+    res = {"sharded": _scale_sharded(smi), "serve": _scale_serve(smi),
+           "pool": _scale_pool(smi)}
+    launches = read_launches()
+    print(f"scale: launches of the port's kernels on the sharded, serve and "
+          f"pool paths {launches}")
+    _expect(launches, {}, "sharded, serve and pool paths")
+    print(f"scale: phase {time.perf_counter() - t0:.1f} s")
+    print("scale: " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1973,6 +2332,7 @@ def main() -> int:
     phase_train()
     phase_run()
     phase_host()
+    phase_scale()
 
     smi = nvidia_smi()
     print(f"times on {smi}:")

@@ -16,10 +16,15 @@ per completed interval: live from the host runtime's coordinator, right
 after the runtime returns for the fused runtimes (the same sequence
 either way).
 
-Live objects that cannot ride in a JSON spec (a custom ``HostConfig``)
-are passed as ``build(spec, host=...)`` overrides; a spec's JSON
+Live objects that cannot ride in a JSON spec (a ``torch.distributed``
+process group for the sharded runtime, a custom ``HostConfig``) are
+passed as ``build(spec, group=...)`` overrides; a spec's JSON
 ``host``/``acfg`` runtime kwargs become ``HostConfig`` /
 ``StepTimeModel`` / ``AsyncConfig`` here.
+
+``Session.serve`` answers action requests for the session's policy
+(``repro_torch.serve``), ``Session.pool`` admits several specs into one
+``repro_torch.tenancy.TenantPool``.
 
 Runtimes run on ``cuda`` unless ``build(spec, device="cpu")``; params
 are drawn on the CPU from ``policy.init(master_key(params_seed))``.
@@ -28,7 +33,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional
 
-from repro_torch import algorithms, envs, models, optim, resolve_device
+from repro_torch import (algorithms, bridge, envs, models, optim,
+                         resolve_device)
 from repro_torch.api import spec as spec_mod
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.core import determinism, engine
@@ -38,8 +44,6 @@ from repro_torch.envs.interfaces import Env
 # what the reference builds and the port does not yet: name -> the
 # ROADMAP queue 1 item that brings it
 UNPORTED_RUNTIMES = {
-    "sharded": "item 5 (the data-parallel runtime)",
-    "serve": "item 6 (serving)",
     "stream": "item 7 (LLM-policy training)",
 }
 UNPORTED_ENVS = {
@@ -185,6 +189,12 @@ def build(spec: ExperimentSpec, device="cuda",
     if injector is not None and rt_name == "host":
         # the one training runtime with live fault sites (worker pools)
         rkw.setdefault("faults", injector)
+    if rt_name in engine.SERVING_RUNTIMES:
+        # the serving entry consumes the spec's serve block (dispatch
+        # width, admission bound) and the dispatcher fault site
+        rkw.setdefault("serve", spec.serve)
+        if injector is not None:
+            rkw.setdefault("faults", injector)
 
     runtime = engine.make_runtime(rt_name, env, policy.apply, params, opt,
                                   cfg, device=device, **rkw)
@@ -273,15 +283,55 @@ class Session:
         n = self.spec.intervals if n_intervals is None else n_intervals
         return trainer.fit(n, resume=resume)
 
-    # ------------------------------------------------- not ported yet
-    def serve(self, *args, **kwargs):
-        """Policy-as-a-service: not ported yet."""
-        raise _not_ported("Session.serve", UNPORTED_RUNTIMES["serve"])
+    # ------------------------------------------------------------ serve
+    def serve(self, checkpoint: Optional[str] = None, start: bool = True):
+        """A ``PolicyServer`` (started unless ``start=False``) answering
+        action requests for this session's policy, configured by
+        ``spec.serve``, on the session's device.
 
+        Params come from a ``TrainState`` checkpoint: ``checkpoint``
+        names one (the ``step_NNNNNNNN`` base path), else the newest
+        complete one under ``spec.checkpoint.dir``; with neither, the
+        session's initial params are served. Any runtime's capsule
+        works: its leading leaves are the policy params
+        (``checkpoint.io.restore_prefix``, in the reference's layout).
+        ``runtime="serve"`` builds a session that can only serve."""
+        from repro_torch.checkpoint import io as ckpt_io
+        from repro_torch.serve.server import PolicyServer, obs_template
+        if checkpoint is None and self.spec.checkpoint.dir:
+            checkpoint = ckpt_io.latest(self.spec.checkpoint.dir)
+        params = self.params
+        if checkpoint is not None:
+            params = bridge.policy_params_from_jax(ckpt_io.restore_prefix(
+                checkpoint, bridge.policy_params_to_reference(self.params)))
+        if hasattr(self.runtime, "server"):      # the serve runtime
+            return self.runtime.server(params=params, start=start)
+        server = PolicyServer(self.policy.apply, params,
+                              obs_like=obs_template(self.env),
+                              serve=self.spec.serve, seed=self.cfg.seed,
+                              faults=self.faults,
+                              device=self.runtime.device)
+        return server.start() if start else server
+
+    # ------------------------------------------------------------- pool
     @staticmethod
-    def pool(*args, **kwargs):
-        """Multi-tenant pools: not ported yet."""
-        raise _not_ported("Session.pool", "item 6 (tenancy)")
+    def pool(specs, weights=None, names=None, max_concurrency: int = 2,
+             on_slice=None, **build_overrides):
+        """Admit several specs (or built Sessions) into one
+        ``repro_torch.tenancy.TenantPool`` sharing this process's
+        device:
+
+            pool = Session.pool([spec_a, spec_b], weights=[2, 1])
+            results = pool.run()          # {name: TenantResult}
+
+        Weighted fair-share time-slicing at interval granularity; every
+        tenant's final params and episode streams equal its solo ``run``
+        bit for bit. ``build_overrides`` (``device="cpu"``, say) reach
+        every tenant's ``build``."""
+        from repro_torch.tenancy import TenantPool
+        return TenantPool(specs, weights=weights, names=names,
+                          max_concurrency=max_concurrency,
+                          on_slice=on_slice, **build_overrides)
 
     # ------------------------------------------------------------ misc
     def describe(self) -> str:

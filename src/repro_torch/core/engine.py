@@ -13,8 +13,10 @@ Counterpart of ``repro/core/engine.py``:
     cfg, device=None, **kwargs)``. Ported: ``mesh`` (the fused interval,
     ``core/mesh_runtime.py``), ``host`` (the threaded runtime,
     ``core/host_runtime.py``), ``sync`` and ``async`` (the baselines,
-    ``core/baselines.py``). The sharded and serve runtimes wait for later
-    slices (ROADMAP queue 1).
+    ``core/baselines.py``), ``sharded`` (data parallel over a
+    ``torch.distributed`` group, ``core/sharded_runtime.py``) and
+    ``serve`` (the serving entry, ``serve/runtime.py``: it answers
+    action requests and refuses the training contract).
 
 Runtimes run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -151,6 +153,8 @@ class ScanRuntimeBase:
       _step(carry)        one interval: (carry', metrics)
       _result_state(c)    (params, state) out of the final carry
       _finalize(c)        reporting only: consume the unconsumed ring
+      _host_metrics(r, d) the (n, alpha, n_envs) reward/done streams from
+                          this process's (a sharded rank gathers them)
 
     The HTS carry is ``(algo, env_state, obs, buffer, j)``; a runtime
     whose carry differs (the baselines) maps it to and from the capsule
@@ -187,6 +191,9 @@ class ScanRuntimeBase:
 
     def _finalize(self, carry):
         return carry
+
+    def _host_metrics(self, rewards, dones):
+        return rewards, dones
 
     # ------------------------------------------------- continuation hooks
     def _carry_to_state(self, carry) -> TrainState:
@@ -239,11 +246,13 @@ class ScanRuntimeBase:
             # passes exist only so the RunResult reflects n updates
             final = self._finalize(self.carry) if finalize else self.carry
         params, state = self._result_state(final)
-        empty = torch.zeros((0, cfg.alpha, cfg.n_envs), dtype=torch.float32)
-        rewards = (torch.stack([m["rewards"] for m in metrics])
-                   if metrics else empty)
-        dones = (torch.stack([m["dones"] for m in metrics])
-                 if metrics else empty)
+        if metrics:
+            rewards, dones = self._host_metrics(
+                torch.stack([m["rewards"] for m in metrics]),
+                torch.stack([m["dones"] for m in metrics]))
+        else:
+            rewards = dones = torch.zeros((0, cfg.alpha, cfg.n_envs),
+                                          dtype=torch.float32)
         rewards, dones = rewards.cpu().numpy(), dones.cpu().numpy()
         synchronize(self.device)
         wall = time.perf_counter() - t0
@@ -260,9 +269,14 @@ _REGISTRY: Dict[str, Callable[..., Runtime]] = {}
 _LAZY: Dict[str, str] = {
     "host": "repro_torch.core.host_runtime",
     "mesh": "repro_torch.core.mesh_runtime",
+    "sharded": "repro_torch.core.sharded_runtime",
     "sync": "repro_torch.core.baselines",
     "async": "repro_torch.core.baselines",
+    "serve": "repro_torch.serve.runtime",
 }
+
+# registry names that answer requests instead of running intervals
+SERVING_RUNTIMES = ("serve",)
 
 
 def register_runtime(name: str):
@@ -289,9 +303,9 @@ def runtime_names():
 
 
 def training_runtime_names():
-    """Registry names whose run/run_from execute training intervals (no
-    serving runtime is ported yet, so all of them)."""
-    return runtime_names()
+    """Registry names whose run/run_from execute training intervals:
+    every one but the serving entries."""
+    return [n for n in runtime_names() if n not in SERVING_RUNTIMES]
 
 
 def make_runtime(name: str, env, policy_apply, params, opt, cfg: HTSConfig,

@@ -504,8 +504,10 @@ class HostHTSRL:
                 if prof:
                     self._prof(f"learner_{fn.__name__.strip('_')}",
                                time.perf_counter() - t0)
-                h.future.set_result(out)
+                # out of the set before its waiter can see the result, so
+                # an interval end never counts a finished submission
                 self._resolved(h)
+                h.future.set_result(out)
 
     def _grad(self, behavior, traj, poison: bool):
         grads = self.grad_fn(behavior, traj)

@@ -29,12 +29,12 @@ this module is scheduling.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch import algorithms
-from repro_torch.core import delayed_grad, determinism
+from repro_torch.core import delayed_grad, determinism, distributed
 from repro_torch.core.batch import BatchConfig, pairwise_tree_sum
 from repro_torch.core.buffers import device_rollout_buffer
 from repro_torch.core.engine import (HTSConfig, RunResult,  # noqa: F401
@@ -62,7 +62,7 @@ def _split_envs(traj):
 
 
 def make_grad_sum_fn(policy_apply: Callable, cfg: HTSConfig,
-                     grad_accumulation: int = 1):
+                     grad_accumulation: int = 1, group=None):
     """``grad_sum(params, traj)``: the SUM of per-env gradients.
 
     One ``vmap`` of ``grad`` over width-1 env slices at the full local
@@ -71,7 +71,15 @@ def make_grad_sum_fn(policy_apply: Callable, cfg: HTSConfig,
     contiguous blocks is summed by its own tree, then the tree runs over
     the A block sums: bit-identical to the flat tree for power-of-two
     blocks. No divide here: that happens once, in make_grad_fn /
-    make_learner_update."""
+    make_learner_update.
+
+    With a process ``group`` the vmap runs at the GLOBAL width: this
+    rank's envs sit at their global rows of a zero-padded trajectory and
+    only their gradients are kept. cuBLAS and cuDNN pick kernels by
+    shape, so a per-env gradient's bits depend on the width of the vmap
+    that computes it (on the H100 a width of 2 or 4 differs from 16),
+    never on its row or on the other rows; at the global width each env
+    gets the 1-process run's bits."""
     alg = algorithms.get_algorithm(cfg.algorithm)
     per_env_grad = torch.func.vmap(
         torch.func.grad(lambda p, t: alg.loss(policy_apply, p, t, cfg)[0]),
@@ -87,9 +95,22 @@ def make_grad_sum_fn(policy_apply: Callable, cfg: HTSConfig,
         blocks = g.reshape((A, n // A) + g.shape[1:])
         return torch.stack([pairwise_tree_sum(b) for b in blocks])
 
+    def per_env_grads(params, traj):
+        if group is None:
+            return per_env_grad(params, _split_envs(traj))
+        # padded in the trajectory's own (alpha, n_envs, ...) layout, so
+        # the vmap reads the strides the 1-process run's does (the CPU's
+        # convolutions take another path for other strides)
+        rank, size = distributed.rank_and_size(group)
+        n = cfg.n_envs
+        rows = slice(rank * n, (rank + 1) * n)
+        padded = {k: _pad_rows(v, rows, n * size, 0 if k == "bootstrap_obs"
+                               else 1) for k, v in traj.items()}
+        return tree_map(lambda g: g[rows],
+                        per_env_grad(params, _split_envs(padded)))
+
     def grad_sum(params, traj):
-        per_env = tree_map(lambda g: g.float(),
-                           per_env_grad(params, _split_envs(traj)))
+        per_env = tree_map(lambda g: g.float(), per_env_grads(params, traj))
         if A <= 1:
             return tree_map(pairwise_tree_sum, per_env)
         return tree_map(lambda g: pairwise_tree_sum(block_sums(g)), per_env)
@@ -97,12 +118,26 @@ def make_grad_sum_fn(policy_apply: Callable, cfg: HTSConfig,
     return grad_sum
 
 
+def _pad_rows(x, rows: slice, width: int, dim: int = 0):
+    """``x`` at ``rows`` of dim ``dim`` of a zero tensor ``width`` wide
+    there; ``x`` itself when it already spans the width."""
+    if x.shape[dim] == width:
+        return x
+    shape = list(x.shape)
+    shape[dim] = width
+    out = x.new_zeros(shape)
+    out.narrow(dim, rows.start, rows.stop - rows.start).copy_(x)
+    return out
+
+
 def make_grad_fn(policy_apply: Callable, cfg: HTSConfig,
-                 grad_accumulation: int = 1):
+                 grad_accumulation: int = 1,
+                 total_envs: Optional[int] = None):
     """``grad(params, traj)``: the per-env tree sum divided once by
-    ``cfg.n_envs``: the gradient of the mean interval loss."""
+    ``total_envs`` (default ``cfg.n_envs``): the gradient of the mean
+    interval loss."""
     grad_sum = make_grad_sum_fn(policy_apply, cfg, grad_accumulation)
-    denom = float(cfg.n_envs)
+    denom = float(total_envs if total_envs is not None else cfg.n_envs)
 
     def grad_fn(params, traj):
         return tree_map(lambda g, p: (g / denom).to(p.dtype),
@@ -111,8 +146,28 @@ def make_grad_fn(policy_apply: Callable, cfg: HTSConfig,
     return grad_fn
 
 
+def combine_across(sums, group):
+    """The cross-replica combine: every rank's canonical gradient SUM,
+    all-gathered in rank (= env block) order as one flat buffer, one
+    collective per logical step, then the pairwise tree over the rank
+    axis. Not ``all_reduce``, whose order the backend defines; and not a
+    sum of zero-padded slots, since ``-0.0 + 0.0`` is ``+0.0``."""
+    keys = sorted(sums)
+    flat = torch.cat([sums[k].reshape(-1) for k in keys])
+    gathered = distributed.all_gather_stack(flat, group)
+    out, at = {}, 0
+    for k in keys:
+        n = sums[k].numel()
+        out[k] = pairwise_tree_sum(
+            gathered[:, at:at + n].reshape((-1,) + tuple(sums[k].shape)))
+        at += n
+    return {k: out[k] for k in sums}
+
+
 def make_learner_update(policy_apply: Callable, opt: Optimizer,
-                        cfg: HTSConfig, grad_accumulation: int = 1):
+                        cfg: HTSConfig, group=None,
+                        grad_accumulation: int = 1,
+                        total_envs: Optional[int] = None):
     """The learner half: ``learn(dg, traj, skip) -> dg'``.
 
     Differentiates at ``behavior_params(dg)`` (theta_{j-K}) on ``traj``
@@ -120,13 +175,26 @@ def make_learner_update(policy_apply: Callable, opt: Optimizer,
     and optimizer state, as for the first K intervals; no gradient is
     computed then. The divided gradient is materialized before the
     optimizer reads it: eager PyTorch fuses nothing across that rounding
-    boundary, where the reference needs ``optimization_barrier``."""
-    grad_fn = make_grad_fn(policy_apply, cfg, grad_accumulation)
+    boundary, where the reference needs ``optimization_barrier``.
+
+    Data-parallel (``group``, the counterpart of the reference's
+    ``axis_name``): each rank contributes its canonical tree SUM over its
+    ``cfg.n_envs`` local envs, the sums are combined across ranks by
+    ``combine_across``, and the single divide by the global env count
+    (``total_envs``, default ``cfg.n_envs``) comes after that combine:
+    bit-identical to the 1-process run for every geometry whose blocks
+    align with the canonical tree."""
+    grad_sum = make_grad_sum_fn(policy_apply, cfg, grad_accumulation, group)
+    denom = float(total_envs if total_envs is not None else cfg.n_envs)
 
     def learn(dg, traj, skip: bool = False):
         if skip:
             return delayed_grad.update(dg, None, opt, skip=True)
-        grads = grad_fn(delayed_grad.behavior_params(dg), traj)
+        bp = delayed_grad.behavior_params(dg)
+        s = grad_sum(bp, traj)
+        if group is not None:
+            s = combine_across(s, group)
+        grads = tree_map(lambda g, p: (g / denom).to(p.dtype), s, bp)
         return delayed_grad.update(dg, grads, opt)
 
     return learn
@@ -152,7 +220,9 @@ def make_ring_drain(learn, staleness: int):
     interval order so ``run(n)`` reflects exactly ``n`` updates. Pass p
     consumes the data of global interval ``j - K + p``; ``skip`` guards
     slots that no interval has filled (n < K). One learner pass per call,
-    K calls, as the reference dispatches one program per pass."""
+    K calls, as the reference dispatches one program per pass; under the
+    sharded runtime ``learn`` carries the process group, so each pass
+    makes its own one collective."""
 
     def drain(dg, buf, j: int):
         for p in range(staleness):
@@ -197,14 +267,27 @@ class _Streams:
 
 
 def make_hts_step(policy_apply: Callable, env, opt: Optimizer,
-                  cfg: HTSConfig, grad_accumulation: int = 1, device=None):
+                  cfg: HTSConfig, grad_accumulation: int = 1, device=None,
+                  group=None, total_envs: Optional[int] = None):
     """The fused interval: ``step(carry) -> (carry', metrics)`` with
     carry ``(dg, env_state, obs, ring, j)``. The two halves are labelled
-    ``hts.learner`` and ``hts.rollout`` for the profiler."""
+    ``hts.learner`` and ``hts.rollout`` for the profiler.
+
+    With a process ``group`` (the sharded runtime) ``cfg.n_envs`` is the
+    per-rank env count: env ids are offset by ``rank * cfg.n_envs``, so
+    each env draws the keys it draws in the 1-process run, the actor
+    runs at the global width (``rollout_interval``'s ``width``), and the
+    learner combines the ranks' gradient sums before dividing by
+    ``total_envs``."""
     device = torch.device("cpu" if device is None else device)
     rcfg = RolloutConfig(cfg.alpha, cfg.n_envs)
     master = determinism.master_key(cfg.seed, device)
-    learn = make_learner_update(policy_apply, opt, cfg, grad_accumulation)
+    learn = make_learner_update(policy_apply, opt, cfg, group,
+                                grad_accumulation, total_envs)
+    offset, width = 0, None
+    if group is not None:
+        rank, size = distributed.rank_and_size(group)
+        offset, width = rank * cfg.n_envs, size * cfg.n_envs
     K = cfg.staleness
     streams = _Streams(device)
     record = torch.profiler.record_function
@@ -218,7 +301,7 @@ def make_hts_step(policy_apply: Callable, env, opt: Optimizer,
         with streams.rollout(), record("hts.rollout"):
             traj, env_state, obs = rollout_interval(
                 policy_apply, env, dg.params, env_state, obs, master,
-                jj * cfg.alpha, rcfg)
+                jj * cfg.alpha, rcfg, env_offset=offset, width=width)
         streams.join()
         metrics = {"rewards": traj["rewards"], "dones": traj["dones"]}
         return (dg_next, env_state, obs, ring_append(ring, traj, K),

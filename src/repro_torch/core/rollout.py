@@ -6,10 +6,18 @@ returns the trajectory the learner consumes. Actions are sampled with
 executor-derived keys (``core.determinism``), so they are a pure function
 of (seed, env id, step). ``env_offset`` shifts the env ids used for
 those keys; transition keys use ``env_id + 1_000_003``.
+
+``width`` (the sharded runtime's global env count) runs the actor on a
+batch of that many rows, the local envs at rows ``env_offset..`` and
+zeros elsewhere, each row under its global env id's key: on the H100
+cuBLAS and cuDNN choose their kernels by shape, so a row's logits
+depend on the batch width (any width from 1 to 32 differs from 64
+there), never on the row's position or on the other rows. At the
+global width every env's action and logprob are the 1-process run's.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -34,21 +42,45 @@ def actor_forward(policy_apply: Callable, params, obs, keys):
     return actions, take_action(logp, actions)
 
 
+def _zeros_in_layout(x, width: int):
+    """Zeros of ``x``'s shape with ``width`` rows, laid out in memory in
+    ``x``'s dimension order (an env's reset obs may come strided): the
+    batch the 1-process run's actor reads has the same strides, and the
+    CPU's convolutions take another path for other strides."""
+    order = sorted(range(x.dim()), key=lambda d: -x.stride(d))
+    shape = (width,) + tuple(x.shape[1:])
+    out = x.new_zeros([shape[d] for d in order])
+    return out.permute([order.index(d) for d in range(x.dim())])
+
+
 def rollout_interval(policy_apply: Callable, env, params, env_state,
                      obs, master_key, start_step: int, cfg: RolloutConfig,
-                     env_offset: int = 0):
+                     env_offset: int = 0, width: Optional[int] = None):
     """Returns (traj, env_state', obs').
 
     traj = {obs, actions (int32), rewards, dones, behavior_logprob (fp32):
     (alpha, n_envs, ...), bootstrap_obs: (n_envs, ...)}."""
+    dev = master_key.device
     env_ids = env_offset + torch.arange(cfg.n_envs, dtype=torch.int64,
-                                        device=master_key.device)
+                                        device=dev)
+    padded = width is not None and width != cfg.n_envs
+    if padded:
+        rows = slice(env_offset, env_offset + cfg.n_envs)
+        actor_ids = torch.arange(width, dtype=torch.int64, device=dev)
+    else:
+        actor_ids = env_ids
     cols = {k: [] for k in ("obs", "actions", "rewards", "dones",
                             "behavior_logprob")}
     for t in range(cfg.alpha):
         gstep = start_step + t
-        keys = determinism.obs_keys(master_key, env_ids, gstep)
-        actions, blp = actor_forward(policy_apply, params, obs, keys)
+        keys = determinism.obs_keys(master_key, actor_ids, gstep)
+        if padded:
+            batch = _zeros_in_layout(obs, width)
+            batch[rows] = obs
+            actions, blp = actor_forward(policy_apply, params, batch, keys)
+            actions, blp = actions[rows], blp[rows]
+        else:
+            actions, blp = actor_forward(policy_apply, params, obs, keys)
         step_keys = determinism.obs_keys(master_key, env_ids + 1_000_003,
                                          gstep)
         env_state, next_obs, reward, done = env.step(env_state, actions,

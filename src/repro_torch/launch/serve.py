@@ -1,8 +1,17 @@
-"""Serving launcher, LLM decode mode: batched prefill, then one-token
-serve steps.
+"""Serving launcher, two modes.
 
-Counterpart of ``repro/launch/serve.py`` (the ``--arch`` mode), with the
-same flags and schedule plus ``--device`` (default ``cuda``)::
+**Policy-as-a-service** (``--spec``): serve an RL policy from an
+ExperimentSpec through the continuous-batching ``PolicyServer``
+(``repro_torch.serve``), loading the newest checkpoint capsule when the
+spec (or ``--checkpoint``) names one, drive the open-loop Poisson load
+generator against it and print p50/p99 latency and QPS::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --spec examples/specs/quickstart.json --requests 500 --rate 2000
+
+**LLM decode** (``--arch``): batched prefill, then one-token serve steps.
+Counterpart of ``repro/launch/serve.py``, with the same flags and
+schedule plus ``--device`` (default ``cuda``)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
         --batch 4 --prompt-len 500 --gen 32
@@ -17,8 +26,8 @@ and serving. Sampling at step i keys on (seed, row, i), the same
 determinism contract as the RL actors. Weights are random, drawn on the
 device from a seeded generator.
 
-``main(argv)`` can be called in-process and returns a ``ServeResult``.
-The ``--spec`` policy-serving mode waits for the RL slices.
+``main(argv)`` can be called in-process: it returns a ``ServeResult``
+in ``--arch`` mode and the load generator's metrics dict with ``--spec``.
 """
 from __future__ import annotations
 
@@ -65,6 +74,26 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def serve_policy(args) -> dict:
+    """--spec mode: build the session, serve it, drive the load gen."""
+    from repro_torch import api
+    from repro_torch.serve import loadgen
+    spec = api.load(args.spec)
+    if args.max_batch is not None:
+        spec = spec.replace(serve={**spec.serve.canonical(),
+                                   "max_batch": args.max_batch})
+    print(f"# serving {spec.env.name} x {spec.policy.name} "
+          f"(max_batch={spec.serve.max_batch}, "
+          f"checkpoint={args.checkpoint or spec.checkpoint.dir or 'none'})",
+          flush=True)
+    metrics = loadgen.run(spec, requests=args.requests, rate=args.rate,
+                          seed=args.seed, checkpoint=args.checkpoint,
+                          device=args.device)
+    for name, value in metrics.items():
+        print(f"{name}={value:.6g}", flush=True)
+    return metrics
+
+
 @torch.inference_mode()
 def generate(model, cfg: ModelConfig, prompts, gen: int,
              temperature: float = 0.0, seed: int = 0):
@@ -105,7 +134,18 @@ def generate(model, cfg: ModelConfig, prompts, gen: int,
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--spec", default=None, metavar="FILE",
-                    help="policy-as-a-service mode (not ported yet)")
+                    help="serve an RL policy from this ExperimentSpec "
+                    "JSON (policy-as-a-service mode)")
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="with --spec: TrainState capsule base path "
+                    "(default: latest under the spec's checkpoint dir, "
+                    "else initial params)")
+    ap.add_argument("--requests", type=int, default=500,
+                    help="with --spec: load-generator request count")
+    ap.add_argument("--rate", type=float, default=2000.0,
+                    help="with --spec: offered load, req/s")
+    ap.add_argument("--max-batch", type=int, default=None,
+                    help="with --spec: override the spec's serve.max_batch")
     ap.add_argument("--arch", default="starcoder2-3b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
@@ -118,12 +158,10 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> ServeResult:
+def main(argv=None):
     args = parse_args(argv)
     if args.spec:
-        raise NotImplementedError(
-            "--spec policy serving is not ported yet: it waits for the RL "
-            "slices (ROADMAP queue 1 items 2-13)")
+        return serve_policy(args)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:

@@ -12,8 +12,8 @@
   checkpointed launcher run stopped at 4 and resumed to 6 equals
   ``Session.fit(6)`` bit for bit.
 * What the port lacks raises ``NotImplementedError`` naming its ROADMAP
-  item: the sharded, serve and stream runtimes, the football, token and
-  token_stream envs, ``Session.serve`` and ``Session.pool``; the host,
+  item: the stream runtime, the football, token and token_stream envs;
+  ``Session.serve`` and ``Session.pool`` work; the host,
   sync and async runtimes build and run. Without CUDA, ``build`` and the
   launcher raise unless ``cpu`` is asked for.
 """
@@ -32,6 +32,7 @@ jax = pytest.importorskip("jax")
 from repro import api as japi  # noqa: E402
 from repro.launch import run as jrun  # noqa: E402
 from repro_torch import api  # noqa: E402
+from repro_torch.core import determinism  # noqa: E402
 from repro_torch.core.tree import tree_leaves  # noqa: E402
 from repro_torch.launch import run  # noqa: E402
 
@@ -180,8 +181,7 @@ def test_session_observers_and_describe():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(runtime="sharded"), "item 5"),
-    (dict(runtime="serve"), "item 6"), (dict(runtime="stream"), "item 7"),
+    (dict(runtime="stream"), "item 7"),
     (dict(env="football"), "item 8"), (dict(env="token"), "item 7"),
     (dict(env={"name": "token_stream",
                "kwargs": {"vocab": 8, "batch": 2, "seq": 4}}), "item 7"),
@@ -208,11 +208,21 @@ def test_host_and_baseline_runtimes_build_and_run(runtime, capsys):
 
 
 def test_serve_and_pool_raise_not_implemented():
+    """ROADMAP queue 1, item 6 is ported: ``Session.serve`` answers
+    requests and ``Session.pool`` builds a pool where both raised; the
+    runtime names still equal the reference's."""
+    from repro_torch.serve import ActionResult, PolicyServer
+    from repro_torch.tenancy import TenantPool
     session = api.build(api.load(QUICKSTART), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        session.serve()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        api.Session.pool([session.spec])
+    srv = session.serve()
+    try:
+        assert isinstance(srv, PolicyServer)
+        obs = session.env.reset(determinism.master_key(0))[1]
+        assert isinstance(srv.act(obs, seed=1, timeout=30), ActionResult)
+    finally:
+        srv.stop()
+    pool = api.Session.pool([session.spec], device="cpu")
+    assert isinstance(pool, TenantPool) and pool.tenants() == ["t0"]
     assert set(japi.runtime_names()) == set(api.runtime_names())
 
 

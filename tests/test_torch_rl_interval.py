@@ -175,14 +175,15 @@ def test_episode_returns_match_jax():
 
 
 def test_runtime_registry():
-    names = ["async", "host", "mesh", "sync"]
-    assert engine.runtime_names() == names
+    names = ["async", "host", "mesh", "sharded", "sync"]
+    assert engine.runtime_names() == sorted(names + ["serve"])
     assert engine.training_runtime_names() == names
     assert engine.get_runtime("mesh") is tmesh.MeshRuntime
     assert engine.get_runtime("host").name == "host"
+    assert engine.get_runtime("sharded").name == "sharded"
     with pytest.raises(KeyError, match="registered: \\['async', 'host', "
-                       "'mesh', 'sync'\\]"):
-        engine.get_runtime("sharded")
+                       "'mesh', 'serve', 'sharded', 'sync'\\]"):
+        engine.get_runtime("stream")
     with pytest.raises(ValueError, match="staleness"):
         port_runtime(staleness=0)
     with pytest.raises(ValueError, match="unknown env_backend"):

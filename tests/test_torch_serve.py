@@ -161,6 +161,10 @@ def test_launcher_main_in_process(capsys):
 
 
 def test_launcher_spec_mode_not_ported():
-    with pytest.raises(NotImplementedError, match="RL slices"):
-        serve.main(["--spec", "examples/specs/quickstart.json",
-                    "--device", "cpu"])
+    """The ``--spec`` policy-serving mode is ported (ROADMAP queue 1, item
+    6) where it raised: it serves the spec's policy under the load
+    generator and returns the metrics it prints."""
+    metrics = serve.main(["--spec", "examples/specs/quickstart.json",
+                          "--requests", "20", "--rate", "4000",
+                          "--device", "cpu"])
+    assert metrics["serve_shed"] == 0 and metrics["serve_qps"] > 0
