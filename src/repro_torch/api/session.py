@@ -27,7 +27,10 @@ passed as ``build(spec, group=...)`` overrides; a spec's JSON
 ``repro_torch.tenancy.TenantPool``.
 
 Runtimes run on ``cuda`` unless ``build(spec, device="cpu")``; params
-are drawn on the CPU from ``policy.init(master_key(params_seed))``.
+are drawn from ``policy.init(master_key(params_seed))``, on the CPU for
+the small policies and on the device for the ``stream`` runtime's
+``backbone``, whose runtime then keeps a host copy
+(``core/stream_runtime.py``).
 """
 from __future__ import annotations
 
@@ -43,14 +46,14 @@ from repro_torch.envs.interfaces import Env
 
 # what the reference builds and the port does not yet: name -> the
 # ROADMAP queue 1 item that brings it
-UNPORTED_RUNTIMES = {
-    "stream": "item 7 (LLM-policy training)",
-}
+UNPORTED_RUNTIMES: Dict[str, str] = {}
 UNPORTED_ENVS = {
-    "token": "item 7 (LLM-policy training)",
-    "token_stream": "item 7 (LLM-policy training)",
     "football": "item 8 (football and the benchmarks)",
 }
+
+# the LLM learner's runtime: not in the engine registry (its workload is
+# a TokenStream, not an Env; core/stream_runtime.py)
+_STREAM_RUNTIME = "stream"
 
 
 # runtimes that take spec.batch (the reference's "sharded" among them)
@@ -64,7 +67,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def runtime_names() -> list:
     """Every runtime name a spec may carry, ported or not."""
-    return sorted(set(engine.runtime_names()) | set(UNPORTED_RUNTIMES))
+    return sorted(set(engine.runtime_names()) | set(UNPORTED_RUNTIMES)
+                  | {_STREAM_RUNTIME})
 
 
 def _decode_steptime(value, where: str):
@@ -123,11 +127,12 @@ def build(spec: ExperimentSpec, device="cuda",
     rt_name = spec.runtime.name
     if rt_name in UNPORTED_RUNTIMES:
         raise _not_ported(f"runtime {rt_name!r}", UNPORTED_RUNTIMES[rt_name])
-    try:
-        engine.get_runtime(rt_name)    # existence check
-    except KeyError:
-        raise KeyError(f"unknown runtime {rt_name!r}; "
-                       f"registered: {runtime_names()}") from None
+    if rt_name != _STREAM_RUNTIME:
+        try:
+            engine.get_runtime(rt_name)    # existence check
+        except KeyError:
+            raise KeyError(f"unknown runtime {rt_name!r}; "
+                           f"registered: {runtime_names()}") from None
     algorithms.get_algorithm(spec.algorithm)
     if spec.env.name in UNPORTED_ENVS:
         raise _not_ported(f"env {spec.env.name!r}",
@@ -138,7 +143,16 @@ def build(spec: ExperimentSpec, device="cuda",
     except TypeError as e:
         raise ValueError(
             f"bad env kwargs for {spec.env.name!r}: {e}") from None
-    if not isinstance(env, Env):
+    # workload/runtime pairing, validated before the policy is sized to
+    # the env, so the error names the actual mismatch
+    from repro_torch.data.pipeline import TokenStream
+    if rt_name == _STREAM_RUNTIME:
+        if not isinstance(env, TokenStream):
+            raise ValueError(
+                f"the 'stream' runtime consumes a TokenStream workload "
+                f"(env 'token_stream'), got env {spec.env.name!r} -> "
+                f"{type(env).__name__}")
+    elif not isinstance(env, Env):
         from repro_torch.envs.device import DeviceEnv
         if isinstance(env, DeviceEnv):
             # "catch_device" etc. are selection outputs, not workloads:
@@ -150,13 +164,19 @@ def build(spec: ExperimentSpec, device="cuda",
                 f"hts={{'env_backend': 'device'}}")
         raise ValueError(
             f"runtime {rt_name!r} consumes an Env workload, got env "
-            f"{spec.env.name!r} -> {type(env).__name__}")
+            f"{spec.env.name!r} -> {type(env).__name__} (the "
+            f"'token_stream' source pairs only with runtime 'stream')")
     try:
         policy = models.get_policy(spec.policy.name, env,
                                    **spec.policy.kwargs)
     except TypeError as e:
         raise ValueError(
             f"bad policy kwargs for {spec.policy.name!r}: {e}") from None
+    except AttributeError as e:
+        raise ValueError(
+            f"policy {spec.policy.name!r} could not be sized to env "
+            f"{spec.env.name!r}: {e} (the token stream pairs with "
+            f"config-backed policies like 'backbone')") from None
     try:
         opt = optim.get_optimizer(spec.optimizer.name,
                                   **spec.optimizer.kwargs)
@@ -165,14 +185,18 @@ def build(spec: ExperimentSpec, device="cuda",
             f"bad optimizer kwargs for {spec.optimizer.name!r}: "
             f"{e}") from None
     cfg = spec.hts_config()
-    params = policy.init(determinism.master_key(spec.params_seed))
+    # the small policies' params are drawn on the CPU; an LLM's on the
+    # device it trains on
+    params = policy.init(determinism.master_key(
+        spec.params_seed,
+        device=device if rt_name == _STREAM_RUNTIME else None))
 
     rkw = _decode_runtime_kwargs(rt_name, spec.runtime.kwargs)
     rkw.update(runtime_overrides)
     # the batch geometry threads into the runtimes that keep the
     # scale-out determinism contract; the baselines have no geometry to
     # factorize, so a non-default batch there is a spec error
-    if rt_name in _BATCH_RUNTIMES:
+    if rt_name in _BATCH_RUNTIMES + (_STREAM_RUNTIME,):
         rkw.setdefault("batch", spec.batch)
     elif not spec.batch.is_default:
         raise ValueError(
@@ -196,8 +220,31 @@ def build(spec: ExperimentSpec, device="cuda",
         if injector is not None:
             rkw.setdefault("faults", injector)
 
-    runtime = engine.make_runtime(rt_name, env, policy.apply, params, opt,
-                                  cfg, device=device, **rkw)
+    if rt_name == _STREAM_RUNTIME:
+        from repro_torch.core.stream_runtime import StreamRuntime
+        if policy.config is None or not hasattr(policy.config,
+                                                "vocab_size"):
+            raise ValueError(
+                f"the 'stream' runtime needs a config-backed policy "
+                f"(e.g. 'backbone'), got {spec.policy.name!r}")
+        if env.vocab != policy.config.vocab_size:
+            raise ValueError(
+                f"token stream vocab={env.vocab} != model "
+                f"vocab_size={policy.config.vocab_size}; make "
+                f"env.kwargs.vocab match the policy config")
+        runtime = StreamRuntime(
+            lambda: env_factory(**spec.env.kwargs), params, opt, cfg,
+            model_config=policy.config, device=device, **rkw)
+        # the session keeps the runtime's host copy: the device copy
+        # drawn above is freed here
+        params = runtime.params0
+    else:
+        if policy.apply is None:
+            raise ValueError(
+                f"policy {spec.policy.name!r} has no per-step apply "
+                f"function; it pairs only with the 'stream' runtime")
+        runtime = engine.make_runtime(rt_name, env, policy.apply, params,
+                                      opt, cfg, device=device, **rkw)
     return Session(spec, runtime, env, policy, params, opt, cfg,
                    faults=injector)
 

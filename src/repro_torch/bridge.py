@@ -20,6 +20,13 @@ whole continuation capsule too (``train_state_from_jax``), and
 ``train_state_to_reference``, gives a capsule's numpy leaves in the
 reference's layout: what the checkpoints hold.
 
+The backbone's params are a flat ``{name: tensor}`` dict in the port
+(``Backbone.named_parameters``); ``backbone_params_from_jax`` unstacks
+the reference's tree into it and ``backbone_params_to_reference`` stacks
+it back, and ``backbone_state_*`` carry a whole backbone
+``DelayedGradState`` (params, params_prev, the Adam or RMSProp moments,
+step) both ways, so checkpoints keep the reference's treedef.
+
 Takes numpy arrays only (``jax.tree.map(np.asarray, params)`` on the
 JAX side), so this module needs neither ``jax`` nor ``ml_dtypes``.
 """
@@ -77,31 +84,127 @@ def _flatten(tree, prefix=""):
             yield name, v
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig,
-                    device=None) -> backbone.Backbone:
-    """The reference's ``backbone.init_params`` tree (numpy leaves) ->
-    the port's ``Backbone`` on ``device`` with the same weights."""
+def _as_tensor(x, device=None) -> torch.Tensor:
+    """A numpy array (bf16 through ``to_torch``) or a tensor, on
+    ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return to_torch(x, device)
+
+
+def backbone_params_from_jax(tree: dict, cfg: ModelConfig, device=None,
+                             moments: bool = False) -> dict:
+    """The reference's ``backbone.init_params`` tree (numpy or tensor
+    leaves) -> the port's flat ``{name: tensor}`` params on ``device``,
+    in ``Backbone.named_parameters`` order, shapes and dtypes checked
+    (``moments``: a params-shaped optimizer moment, fp32 throughout)."""
     state = {"embed": tree["embed"]["table"],
              "lm_head": tree["lm_head"],
              "value_head": tree["value_head"]}
     state.update(_flatten(tree["final_norm"], "final_norm."))
     for n, layer in enumerate(unstack_layers(tree, cfg)):
         state.update(_flatten(layer, f"layers.{n}."))
-    model = backbone.Backbone(cfg, device="meta")
-    expected = model.state_dict()
+    expected = backbone.Backbone(cfg, device="meta").state_dict()
     if set(state) != set(expected):
         raise ValueError("param trees differ: missing "
                          f"{sorted(set(expected) - set(state))}, unexpected "
                          f"{sorted(set(state) - set(expected))}")
-    tensors = {}
+    out = {}
     for name, ref in expected.items():
-        t = to_torch(state[name], device)
-        if t.shape != ref.shape or t.dtype != ref.dtype:
+        t = _as_tensor(state[name], device)
+        dtype = torch.float32 if moments else ref.dtype
+        if t.shape != ref.shape or t.dtype != dtype:
             raise ValueError(f"{name}: got {tuple(t.shape)} {t.dtype}, the "
-                             f"port expects {tuple(ref.shape)} {ref.dtype}")
-        tensors[name] = t
-    model.load_state_dict(tensors, assign=True)
-    return model
+                             f"port expects {tuple(ref.shape)} {dtype}")
+        out[name] = t
+    return out
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig,
+                    device=None) -> backbone.Backbone:
+    """The reference's ``backbone.init_params`` tree (numpy leaves) ->
+    the port's ``Backbone`` on ``device`` with the same weights."""
+    return backbone.from_params(cfg,
+                                backbone_params_from_jax(tree, cfg, device))
+
+
+def _nest(flat: dict) -> dict:
+    """{"a.b": x} -> {"a": {"b": x}}."""
+    out: dict = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        d = out
+        for k in path:
+            d = d.setdefault(k, {})
+        d[leaf] = v
+    return out
+
+
+def backbone_params_to_reference(params: dict, cfg: ModelConfig) -> dict:
+    """The inverse of ``backbone_params_from_jax``: the flat params (any
+    device, meta included) in the reference's tree, each cycle position's
+    layers stacked under ``blocks/l<i>`` (block axis first) and the
+    left-over layers in ``rem``. Leaves stay tensors of their dtype (bf16
+    too; ``checkpoint.io`` stores it as the reference does)."""
+    layers_ = [_nest({k[len(f"layers.{n}."):]: v for k, v in params.items()
+                      if k.startswith(f"layers.{n}.")})
+               for n in range(cfg.n_layers)]
+    cyc = cfg.cycle_len
+    n_blocks = cfg.n_layers // cyc
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    tree = {"embed": {"table": params["embed"]},
+            "blocks": {f"l{i}": stack([layers_[b * cyc + i]
+                                       for b in range(n_blocks)])
+                       for i in range(cyc)},
+            "final_norm": _nest({k[len("final_norm."):]: v
+                                 for k, v in params.items()
+                                 if k.startswith("final_norm.")}),
+            "lm_head": params["lm_head"],
+            "value_head": params["value_head"]}
+    if n_blocks * cyc < cfg.n_layers:
+        tree["rem"] = layers_[n_blocks * cyc:]
+    return tree
+
+
+def _map_backbone_state(dg, fn):
+    """``fn(tree, moments)`` over every params-shaped tree of a backbone
+    ``DelayedGradState`` (params, params_prev, and the optimizer's
+    moments with ``moments=True``); other leaves (adam's ``t``,
+    ``step``) as they are."""
+    def opt(st):
+        if isinstance(st, dict):
+            return {k: fn(v, True) if isinstance(v, dict) else v
+                    for k, v in st.items()}
+        return st
+    params, prev, opt_state, step = dg
+    return delayed_grad.DelayedGradState(fn(params, False), fn(prev, False),
+                                         opt(opt_state), step)
+
+
+def backbone_state_to_reference(dg, cfg: ModelConfig):
+    """A backbone ``DelayedGradState`` in the reference's layout (what
+    ``launch/train.py`` checkpoints): tensor leaves, params-shaped trees
+    stacked by ``backbone_params_to_reference``."""
+    return _map_backbone_state(
+        dg, lambda t, _: backbone_params_to_reference(t, cfg))
+
+
+def backbone_state_from_jax(dg, cfg: ModelConfig, device=None):
+    """The inverse: a reference backbone ``DelayedGradState`` (numpy or
+    tensor leaves) as the port's, on ``device``."""
+    out = _map_backbone_state(
+        dg, lambda t, m: backbone_params_from_jax(t, cfg, device, m))
+    opt_state = out.opt_state
+    if isinstance(opt_state, dict):
+        opt_state = {k: v if isinstance(v, dict) else _as_tensor(v, device)
+                     for k, v in opt_state.items()}
+    return out._replace(opt_state=opt_state,
+                        step=_as_tensor(out.step, device).to(torch.int32))
 
 
 def cache_from_jax(tree: dict, cfg: ModelConfig, device=None) -> list:

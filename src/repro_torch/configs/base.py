@@ -170,8 +170,8 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; the port registers "
                        f"{sorted(_REGISTRY)} (the MoE, encoder-decoder and "
-                       "VLM archs wait for later slices, ROADMAP queue 1 "
-                       "item 14)")
+                       "VLM archs wait for later slices, ROADMAP queue 1, "
+                       "item 7b)")
     return _REGISTRY[name]
 
 

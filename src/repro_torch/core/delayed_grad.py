@@ -11,7 +11,8 @@ depth is read off the leaf shapes.
 
 ``update`` builds new tensors and writes none in place: the rollout half
 of an interval reads ``params`` on another stream while the learner half
-makes the next ones.
+makes the next ones. ``update_`` is the same K=1 step in place, for the
+``stream`` runtime, whose one learner owns its state.
 """
 from __future__ import annotations
 
@@ -87,3 +88,23 @@ def update(state: DelayedGradState, grads, opt: Optimizer,
         opt_state=opt_state,
         step=state.step + 1,
     )
+
+
+def update_(state: DelayedGradState, grads,
+            opt: Optimizer) -> DelayedGradState:
+    """``update`` at K=1 in place, for a caller that donates ``state``
+    (the ``stream`` runtime): the optimizer state is updated leaf by leaf
+    in place (``opt.update_``), theta_{j+1} is written into the buffer of
+    theta_{j-1} (``params_prev``), whose one reader, the gradient, is
+    done, and the two buffers swap roles. The same bits as ``update``;
+    ``state`` and its tensors are not to be used afterwards. An optimizer
+    without ``update_`` takes ``update``."""
+    if behavior_lag(state) != 1:
+        raise ValueError("update_ is the K=1 update; the behavior ring of "
+                         f"K={behavior_lag(state)} takes update")
+    if opt.update_ is None:
+        return update(state, grads, opt)
+    out = state.params_prev
+    opt_state = opt.update_(grads, state.opt_state, state.params, out)
+    return DelayedGradState(params=out, params_prev=state.params,
+                            opt_state=opt_state, step=state.step + 1)

@@ -18,6 +18,7 @@ Recipe (jax 0.9, ``jax_threefry_partitionable=True``):
   gumbel         = -log(-log(uniform))
   categorical    = argmax(logits + gumbel)
   split(k, n)    = both words of threefry(k, (iota >> 32, iota & mask))
+  permutation    = rounds of split, 32 bits per element, stable sort
   randint        = two bit draws from split(k, 2), combined with the span
                    multiplier 2**32 % span (``jax.random.randint``)
   normal         = sqrt(2) * erfinv(uniform in (nextafter(-1, 0), 1))
@@ -141,6 +142,23 @@ def randint(key, shape, minval: int, maxval: int):
     off = (((higher % span) * mult) & MASK) + lower % span
     off = (off & MASK) % span
     return (minval + off).to(torch.int32)
+
+
+def permutation(key, x):
+    """``jax.random.permutation(key, x)`` for an int ``x`` (a shuffled
+    ``arange(x)``) or a 1-D tensor, bit-exact: ceil(3 ln n / ln(2**32 -
+    1)) rounds, each splitting the key, drawing 32 bits per element and
+    sorting by them stably (``lax.sort_key_val``). Keys tie a few times
+    per round at large n, so the sort must be stable."""
+    if isinstance(x, int):
+        x = torch.arange(x, dtype=torch.int32, device=key.device)
+    n = x.shape[0]
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK)))
+    for _ in range(rounds):
+        key, sub = split(key, 2)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
 
 
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0):

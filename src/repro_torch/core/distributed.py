@@ -27,6 +27,7 @@ invocation per process).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -37,6 +38,9 @@ __all__ = ["initialize", "is_initialized", "global_data_group",
            "rank_and_size", "all_gather_stack", "all_gather_cat"]
 
 BACKENDS = ("nccl", "gloo")
+# process 0's store listens on this inherited file descriptor, a socket
+# bound to the coordinator's port, when the variable is set
+STORE_FD_ENV = "REPRO_TORCH_STORE_FD"
 
 
 def is_initialized() -> bool:
@@ -72,14 +76,6 @@ def _check_backend(backend: str, device, num_processes: int) -> None:
             f"one GPU); use 'gloo' to share GPUs between ranks")
 
 
-def _init_method(address: str) -> str:
-    """``host:port`` -> ``tcp://host:port``; a ``tcp://`` or ``file://``
-    URL passes through."""
-    if "://" in address:
-        return address
-    return f"tcp://{address}"
-
-
 def initialize(coordinator_address: str, num_processes: int,
                process_id: int, backend: Optional[str] = None,
                device="cuda") -> str:
@@ -106,10 +102,29 @@ def initialize(coordinator_address: str, num_processes: int,
     _check_backend(backend, device, num_processes)
     if backend == "nccl":
         torch.cuda.set_device(process_id)
-    dist.init_process_group(backend,
-                            init_method=_init_method(coordinator_address),
-                            world_size=num_processes, rank=process_id)
+    if coordinator_address.startswith("file://"):
+        dist.init_process_group(backend, init_method=coordinator_address,
+                                world_size=num_processes, rank=process_id)
+    else:
+        dist.init_process_group(
+            backend, store=_tcp_store(coordinator_address, num_processes,
+                                      process_id),
+            world_size=num_processes, rank=process_id)
     return backend
+
+
+def _tcp_store(address: str, num_processes: int, process_id: int):
+    """The rendezvous store at ``host:port`` (or ``tcp://host:port``),
+    the same on every rank: process 0 serves it, the others connect.
+    With ``STORE_FD_ENV`` set, process 0 serves it on that inherited
+    socket, already bound to the port, so a caller that picked a free
+    port by binding it keeps the port until the store listens (closing
+    the probe and binding again could lose it to another process)."""
+    host, _, port = address.removeprefix("tcp://").rpartition(":")
+    master = process_id == 0
+    fd = os.environ.get(STORE_FD_ENV) if master else None
+    return dist.TCPStore(host, int(port), num_processes, is_master=master,
+                         master_listen_fd=None if fd is None else int(fd))
 
 
 def rank_device(device, backend: str, rank: int) -> torch.device:

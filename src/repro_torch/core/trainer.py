@@ -81,21 +81,29 @@ def prune_checkpoints(checkpoint_dir: str, keep: int) -> None:
                 pass
 
 
-def to_disk(state: TrainState):
-    """The capsule as the checkpoint holds it: numpy, reference layout."""
+def to_disk(state: TrainState, runtime=None):
+    """The capsule as the checkpoint holds it, in the reference's layout:
+    numpy leaves, or the runtime's own conversion where it has one (the
+    ``stream`` runtime's backbone capsule, ``to_reference``)."""
+    if runtime is not None and hasattr(runtime, "to_reference"):
+        return runtime.to_reference(state)
     return bridge.train_state_to_reference(state)
 
 
-def from_disk(tree) -> TrainState:
+def from_disk(tree, runtime=None) -> TrainState:
     """A restored (reference-layout) capsule as the port's, on the CPU;
     ``run_from`` moves it to the runtime's device."""
+    if runtime is not None and hasattr(runtime, "from_reference"):
+        return runtime.from_reference(tree)
     return bridge.train_state_from_jax(tree)
 
 
-def restore_capsule(path: str, template: TrainState) -> TrainState:
+def restore_capsule(path: str, template: TrainState,
+                    runtime=None) -> TrainState:
     """A trainer checkpoint restored against ``template`` (any capsule of
     the restoring runtime) with every check of ``checkpoint.io.restore``."""
-    return from_disk(ckpt_io.restore(path, to_disk(template)))
+    return from_disk(ckpt_io.restore(path, to_disk(template, runtime)),
+                     runtime)
 
 
 class LearnerDiverged(RuntimeError):
@@ -180,7 +188,7 @@ class Trainer:
     def _save(self, state: TrainState, intervals: int,
               stream: evaluate.ReturnStream) -> None:
         meta = checkpoint_metadata(self.runtime, intervals, stream)
-        ckpt_io.save(self._ckpt_path(intervals), to_disk(state),
+        ckpt_io.save(self._ckpt_path(intervals), to_disk(state, self.runtime),
                      metadata=meta)
         if self.faults is not None:
             # checkpoint-site chaos: the atomic write cannot produce a
@@ -224,7 +232,7 @@ class Trainer:
                   f"checkpoint {saved} -> runtime {geom.canonical()} "
                   f"(same global_batch; bit-exact by the scale-out "
                   f"determinism contract)", file=sys.stderr)
-        state = restore_capsule(path, self.runtime.state())
+        state = restore_capsule(path, self.runtime.state(), self.runtime)
         return state, int(meta["intervals"]), meta.get("metrics")
 
     # --------------------------------------------------------- recovery
@@ -248,7 +256,7 @@ class Trainer:
                 if meta.get("format") != CKPT_FORMAT:
                     continue
                 try:
-                    state = restore_capsule(path, template)
+                    state = restore_capsule(path, template, self.runtime)
                 except ckpt_io.CheckpointCorrupt as e:
                     print(f"[trainer] skipping corrupt checkpoint "
                           f"{os.path.basename(path)}: {e}",

@@ -4,8 +4,10 @@ Counterpart of ``repro/envs/__init__.py``. Registered: ``catch`` and
 ``gridmaze`` (host envs) and ``catch_device`` and ``gridmaze_device``
 (their batched ports, which specs normally reach through
 ``HTSConfig.env_backend="device"``; ``envs.device`` resolves a host
-env's port). ``football``, ``token`` and ``token_stream`` are not ported
-yet (ROADMAP queue 1). Built-ins load on first lookup; an unknown
+env's port), ``token`` (next-token prediction as an MDP) and
+``token_stream`` (``data.pipeline.TokenStream``, the workload of the
+``stream`` runtime). ``football`` is not ported yet (ROADMAP queue 1).
+Built-ins load on first lookup; an unknown
 name raises ``KeyError`` listing the names.
 """
 from __future__ import annotations
@@ -21,6 +23,9 @@ _LAZY: Dict[str, tuple] = {
     "gridmaze": ("repro_torch.envs.gridmaze", "make"),
     "catch_device": ("repro_torch.envs.device.catch", "make"),
     "gridmaze_device": ("repro_torch.envs.device.gridmaze", "make"),
+    "token": ("repro_torch.envs.token_env", "make"),
+    # the batched token source of the ``stream`` runtime, not an Env
+    "token_stream": ("repro_torch.data.pipeline", "TokenStream"),
 }
 
 

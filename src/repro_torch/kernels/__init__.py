@@ -13,10 +13,13 @@ interpret mode off the TPU; a CUDA tensor takes the kernel, or raises if
 the kernel cannot be built or launched. The plain version runs on the
 card only when the caller asks for it with ``use_kernel=False``.
 
-The kernels are forward only: the CUDA route refuses an input that
-autograd or ``torch.func`` would differentiate (``refuse_grad``), since
-its outputs, written through ``ctypes``, would carry no gradient. The
-CPU route differentiates through the plain version.
+On the CUDA route each wrapper calls its kernel inside a
+``torch.autograd.Function`` (``setup_context`` style, with a ``vmap``
+rule, ``vmap_by_folding``), so ``.backward()``, ``torch.func.grad``,
+``vjp`` and ``vmap`` all work on the kernels' outputs. Each backward is
+the reference's: the VJP of the plain version on the saved inputs for
+flash attention and wkv6, the same kernel run on reversed time for
+lru_scan. The CPU route differentiates through the plain version.
 
 Kernels are built at first use by ``nvcc`` into a shared library with a
 plain C interface (no PyTorch headers), keyed on a hash of the sources
@@ -52,30 +55,33 @@ def use_kernel_for(x: torch.Tensor, use_kernel: bool) -> bool:
     raise ValueError(f"no kernel route for device {x.device}")
 
 
-def _grad_tracked(t: torch.Tensor) -> bool:
-    """Is ``t``, at any level of ``torch.func`` wrapping, a tensor that
-    ``grad``/``vjp``/``jvp`` differentiates?"""
-    ft = torch._C._functorch
-    while ft.is_functorch_wrapped_tensor(t):
-        if ft.is_gradtrackingtensor(t):
-            return True
-        t = ft.get_unwrapped(t)
-    return False
-
-
-def refuse_grad(what: str, *tensors) -> None:
-    """Raise unless the kernel ``what`` may run on these inputs: none may
-    require grad while grad mode is on, and none may be differentiated
-    by a ``torch.func`` transform. ``None`` entries are skipped."""
-    for t in tensors:
-        if t is None:
-            continue
-        if _grad_tracked(t) or (torch.is_grad_enabled() and t.requires_grad):
-            raise RuntimeError(
-                f"the {what} CUDA kernel has no backward yet (ROADMAP queue "
-                "1, item 7): call it under torch.no_grad() or "
-                "torch.inference_mode() with inputs that do not require "
-                "grad, or differentiate the plain version on the CPU")
+def vmap_by_folding(apply, info, in_dims, args, batched):
+    """The ``vmap`` rule of a kernel's ``autograd.Function``: the kernels
+    take a leading batch axis, so a vmapped call folds the vmapped axis
+    into it (one launch) and splits it off the outputs. ``batched[i]``
+    says whether ``args[i]`` has that leading batch axis; an argument
+    without one (wkv6's ``u``) that is vmapped itself makes the rule call
+    once per vmapped index and stack. ``None`` arguments and options pass
+    through."""
+    n = info.batch_size
+    if any(d is not None and not b for d, b in zip(in_dims, batched)):
+        outs = []
+        for i in range(n):
+            sub = [a if d is None else a.select(d, i)
+                   for a, d in zip(args, in_dims)]
+            outs.append(apply(*sub))
+        outs = tuple(torch.stack(o) for o in zip(*outs))
+        return outs, (0,) * len(outs)
+    folded, lead = [], None
+    for a, d, b in zip(args, in_dims, batched):
+        if b and a is not None:
+            a = a.movedim(d, 0) if d is not None else a.expand(n, *a.shape)
+            lead = a.shape[1]
+            a = a.reshape(n * a.shape[1], *a.shape[2:])
+        folded.append(a)
+    outs = apply(*folded)
+    outs = tuple(o.reshape(n, lead, *o.shape[1:]) for o in outs)
+    return outs, (0,) * len(outs)
 
 
 def _nvcc() -> str:

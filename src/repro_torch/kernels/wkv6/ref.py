@@ -7,8 +7,12 @@ model's function).
     o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 
 Counterpart of ``repro/models/rwkv6.py::wkv6_ref`` (re-exported by
-``repro/kernels/wkv6/ref.py``), without its checkpointed chunking, which
-only serves the backward: a plain loop over time in fp32.
+``repro/kernels/wkv6/ref.py``): a plain loop over time in fp32, split
+into checkpointed chunks of the largest divisor of T up to ``chunk``
+(64 by default; the kernel's backward asks for 128, as the reference's
+``ops.mix`` does). Chunking changes no value; it bounds what the
+backward stores to one state per chunk boundary, where differentiating
+the plain loop stores a (B, H, N, N) state per step.
 
 r, k, v: (B, T, H, N); w: (B, T, H, N), the decay in (0, 1); u: (H, N);
 s0: (B, H, N, N) or None (zeros). Returns (o (B, T, H, N) in ``r.dtype``,
@@ -21,18 +25,100 @@ import torch
 from repro_torch.kernels.wkv6.kernel import CHUNK, SUB
 
 
-def wkv6_ref(r, k, v, w, u, s0=None):
-    B, T, H, N = r.shape
-    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
-    uf = u.float()[None, :, :, None]
-    s = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
-         if s0 is None else s0.float())
-    o = torch.empty((B, T, H, N), dtype=torch.float32, device=r.device)
-    for t in range(T):
+def _steps(s, rf, kf, vf, wf, uf):
+    """The recurrence over the steps of rf (B, T, H, N) from state s, in
+    fp32: (o (B, T, H, N), s_T)."""
+    o = []
+    for t in range(rf.shape[1]):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]      # (B, H, N, N)
-        o[:, t] = torch.einsum("bhn,bhnm->bhm", rf[:, t], s + uf * kv)
+        o.append(torch.einsum("bhn,bhnm->bhm", rf[:, t], s + uf * kv))
         s = wf[:, t, :, :, None] * s + kv
+    return torch.stack(o, 1), s
+
+
+def _chunk_fn(s, r, k, v, w, u):
+    """One chunk of ``wkv6_ref`` from the fp32 state s: (o in r.dtype,
+    s_T)."""
+    o, s = _steps(s, r.float(), k.float(), v.float(), w.float(),
+                  u.float()[None, :, :, None])
     return o.to(r.dtype), s
+
+
+def _chunks(T: int, chunk: int) -> list:
+    chunk = min(chunk, T)
+    while T % chunk:          # the largest divisor <= chunk
+        chunk -= 1
+    return [slice(c0, c0 + chunk) for c0 in range(0, T, chunk)]
+
+
+def _state0(r, s0):
+    B, _, H, N = r.shape
+    return (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+            if s0 is None else s0.float())
+
+
+def _forward(r, k, v, w, u, s0, chunk: int):
+    """The loop over chunks: (o, s_T, the state each chunk starts from)."""
+    s, outs, bounds = _state0(r, s0), [], []
+    for c in _chunks(r.shape[1], chunk):
+        bounds.append(s)
+        o, s = _chunk_fn(s, r[:, c], k[:, c], v[:, c], w[:, c], u)
+        outs.append(o)
+    return torch.cat(outs, 1), s, bounds
+
+
+def wkv6_ref_vjp(cts, r, k, v, w, u, s0=None, chunk: int = 64):
+    """The VJP of ``wkv6_ref`` at these inputs for the cotangents
+    ``cts`` = (do, ds_T), as ``jax.checkpoint`` of each chunk gives it:
+    the chunk-boundary states first, then each chunk run again under
+    ``torch.func.vjp``, last chunk first. Returns the input gradients
+    (None for an absent s0); the backward of ``wkv6_ref`` and of the
+    kernel's ``ops.Wkv6``."""
+    go, gs = cts
+    if go is None or gs is None:
+        raise RuntimeError("wkv6 backward: a cotangent is missing")
+    cs = _chunks(r.shape[1], chunk)
+    with torch.no_grad():
+        *_, bounds = _forward(r, k, v, w, u, s0, chunk)
+    grads, du = [], None
+    for s, c in zip(reversed(bounds), reversed(cs)):
+        _, vjp = torch.func.vjp(_chunk_fn, s, r[:, c], k[:, c], v[:, c],
+                                w[:, c], u)
+        gs, *g, du_c = vjp((go[:, c], gs))
+        grads.append(g)
+        du = du_c if du is None else du + du_c
+    dr, dk, dv, dw = (torch.cat(x[::-1], 1) for x in zip(*grads))
+    return dr, dk, dv, dw, du, None if s0 is None else gs.to(s0.dtype)
+
+
+class _Wkv6Ref(torch.autograd.Function):
+    """``wkv6_ref``: the forward keeps only its inputs, the backward is
+    ``wkv6_ref_vjp`` (the checkpointed chunks of the reference). A
+    ``Function`` rather than ``torch.utils.checkpoint``, which
+    ``torch.func`` transforms refuse."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(r, k, v, w, u, s0, chunk):
+        o, s, _ = _forward(r, k, v, w, u, s0, chunk)
+        return o, s
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        *tensors, s0, ctx.chunk = inputs
+        ctx.has_s0 = s0 is not None
+        ctx.save_for_backward(*tensors, *([s0] if ctx.has_s0 else []))
+
+    @staticmethod
+    def backward(ctx, go, gs):
+        saved = list(ctx.saved_tensors)
+        if not ctx.has_s0:
+            saved.append(None)
+        return (*wkv6_ref_vjp((go, gs), *saved, chunk=ctx.chunk), None)
+
+
+def wkv6_ref(r, k, v, w, u, s0=None, chunk: int = 64):
+    return _Wkv6Ref.apply(r, k, v, w, u, s0, chunk)
 
 
 def wkv6_chunked_ref(r, k, v, w, u, s0=None):

@@ -11,8 +11,12 @@ value)`` and ``config``. Built-ins:
   cnn       the paper's conv trunk (configs.paper_cnn); kwargs override
             CNNPolicyConfig fields
   token     embedding policy over an integer-token observation
-  backbone  not ported yet: raises NotImplementedError (ROADMAP queue 1,
-            item 14)
+  backbone  a decoder LLM (configs.base.get_config) as the policy/value
+            network; kwargs: arch, reduced, plus ModelConfig field
+            overrides (n_layers, dtype, ...). Its params are a flat
+            {name: tensor} dict (``Backbone.named_parameters``), drawn on
+            the key's device; ``apply`` is None: the ``stream`` runtime's
+            learner (``core/learner.py``) consumes it through ``config``
 
 The built-ins load on first lookup: the serving modules import from this
 package, and ``cnn_policy`` is not theirs to load.
@@ -116,8 +120,29 @@ def _load_builtins() -> None:
             apply_token_policy)
 
     @register_policy("backbone")
-    def _backbone(env, **kwargs) -> Policy:
-        raise NotImplementedError(
-            "the 'backbone' policy (an LLM as the policy/value network) is "
-            "not ported yet: it waits for the LLM training path, ROADMAP "
-            "queue 1, item 14")
+    def _backbone(env, arch: str = "starcoder2-3b", reduced: bool = False,
+                  **overrides) -> Policy:
+        import dataclasses
+
+        import torch
+
+        from repro_torch.configs.base import get_config
+        from repro_torch.models import backbone
+        cfg = get_config(arch)
+        if reduced:
+            cfg = cfg.reduced()
+        if overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
+        backbone.check_supported(cfg)
+
+        def init(key):
+            # the key's two uint32 words seed a generator on its device:
+            # a pure function of the key, not the reference's numbers
+            # (tests bridge JAX weights across)
+            words = [int(w) for w in key.cpu()]
+            gen = torch.Generator(device=key.device).manual_seed(
+                (words[0] << 32) | words[1])
+            model = backbone.init_params(cfg, gen, key.device)
+            return {n: p.detach() for n, p in model.named_parameters()}
+
+        return Policy("backbone", init, None, config=cfg)

@@ -5,9 +5,11 @@ Counterpart of ``repro/models/attention.py`` (``init_attention``,
 always goes through ``kernels.flash_attention.ops.attend``:
 ``cfg.use_pallas_attention`` keeps its meaning, "use the kernel", and
 False asks for the plain version explicitly. A CPU tensor always takes
-the plain version. The reference's jnp ``blocked_attention`` with its
-custom flash backward waits for the training slice; on this forward-only
-path it computes the same function as the kernel.
+the plain version. Training differentiates the same call: the kernel's
+backward is the VJP of its plain version (``ops.FlashAttention``). The
+reference's jnp ``blocked_attention``, its training default with a
+custom flash backward, computes the same function and is not ported
+(ROADMAP queue 1, item 7b).
 
 Decode (one query against the cache) is plain PyTorch, as in the
 reference, where it is no kernel either.

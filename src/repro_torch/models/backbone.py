@@ -10,15 +10,23 @@ the cycle exists only in the bridge. Modules hold the weights; the config
 is passed on each call, as the reference passes it beside the params, so
 one set of weights can run with and without the kernels.
 
-Entry points: ``forward`` (full sequence, optionally filling caches),
+Entry points: ``forward`` (full sequence, optionally filling caches, or
+for training with ``remat=True``: one ``torch.utils.checkpoint`` per
+layer, the counterpart of the reference's ``jax.checkpoint`` per block),
 ``prefill`` and ``decode_step``; ``init_params`` builds the model on the
-device from a ``torch.Generator``.
+device from a ``torch.Generator``. ``Backbone.forward`` is ``forward``'s
+hidden states, so ``torch.func.functional_call`` runs the model on a flat
+``{name: tensor}`` dict (the learner's params); ``from_params`` wraps
+such a dict in a module without copying; ``param_count`` counts a
+config's parameters without allocating them (the counterpart of
+``abstract_params``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import (ATTN_FULL, ATTN_LOCAL, FFN_DENSE,
@@ -28,7 +36,7 @@ from repro_torch.models import attention, layers, rglru, rwkv6
 _NOT_PORTED = ("not ported yet: the port's backbone is the decoder of "
                "ATTN_FULL/ATTN_LOCAL/RGLRU/RWKV mixers with the dense FFN; "
                "MoE, encoder-decoder and VLM inputs wait for later slices, "
-               "ROADMAP queue 1 item 14")
+               "ROADMAP queue 1, item 7b")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -88,6 +96,25 @@ class Backbone(nn.Module):
                                                    dtype=torch.float32,
                                                    device=device))
 
+    def forward(self, cfg: ModelConfig, tokens, positions=None,
+                remat: bool = False):
+        """The final hidden states (B, S, D) of a full sequence."""
+        return forward(self, cfg, tokens, positions=positions,
+                       remat=remat)[0]
+
+
+def from_params(cfg: ModelConfig, params: dict) -> Backbone:
+    """A ``Backbone`` whose weights are the tensors of ``params`` (a flat
+    ``{name: tensor}`` dict, as ``named_parameters`` names them), shared,
+    not copied."""
+    model = Backbone(cfg, device="meta")
+    model.load_state_dict(params, assign=True)
+    return model
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return sum(p.numel() for p in Backbone(cfg, device="meta").parameters())
+
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -125,17 +152,40 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
             for mixer, _ in cfg.layer_kinds]
 
 
+def _remat_layer(layer: DecoderLayer, x, cfg: ModelConfig, positions):
+    """One layer under ``torch.utils.checkpoint``: the backward runs it
+    again instead of keeping its intermediates. Its weights go in as
+    arguments, so the recompute sees them even when the caller swapped
+    them in with ``functional_call`` and has swapped them out since."""
+    names, weights = zip(*layer.named_parameters())
+
+    def run(x, *ws):
+        return torch.func.functional_call(
+            layer, dict(zip(names, ws)), (x, cfg),
+            {"positions": positions})[0]
+
+    return torch.utils.checkpoint.checkpoint(run, x, *weights,
+                                             use_reentrant=False)
+
+
 def forward(model: Backbone, cfg: ModelConfig, tokens, *, positions=None,
-            cache=None, cache_pos=None):
+            cache=None, cache_pos=None, remat: bool = False):
     """Full sequence (cache None), prefill (cache given, S > 1) or decode
     (cache given, S == 1, cache_pos given). Returns (hidden, cache).
+    ``remat`` (full sequence only): checkpoint every layer.
 
     Each layer's returned cache replaces its entry in the caller's list:
     attention writes its k/v in place and returns the same dict, the
     recurrent mixers return new state."""
+    if remat and cache is not None:
+        raise ValueError("remat applies to a full-sequence forward (no "
+                         "cache)")
     x = layers.apply_embed(model.embed, tokens) * math.sqrt(cfg.d_model)
     x = x.to(layers.cdtype(cfg))
     for i, layer in enumerate(model.layers):
+        if remat:
+            x = _remat_layer(layer, x, cfg, positions)
+            continue
         x, new = layer(x, cfg, positions=positions,
                        cache=None if cache is None else cache[i],
                        cache_pos=cache_pos)

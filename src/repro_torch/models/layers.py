@@ -106,8 +106,66 @@ class MLP(nn.Module):
 
 
 # ---------------------------------------------------------------- embed
+class _Embed(torch.autograd.Function):
+    """``table[tokens]`` with a backward that gives the same bits on every
+    run, where the plain indexing backward may add the rows of repeated
+    tokens with atomics on CUDA, in an order that varies from run to
+    run. The rows of the cotangent are sorted stably by token, each
+    token's rows are summed (in fp32 at least) by a pairwise tree in
+    position order (``_segment_sums``), and each token's row of the
+    gradient receives that sum and exact zeros, which any order of adds
+    leaves the same. No global setting is touched."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(table, tokens):
+        return table[tokens.long()]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, tokens = inputs
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        flat, order = torch.sort(tokens.reshape(-1).long(), stable=True)
+        acc = torch.promote_types(g.dtype, torch.float32)
+        rows = g.reshape(flat.numel(), -1)[order].to(acc)
+        first, sums = _segment_sums(flat, rows)
+        # every row but a run's first adds an exact zero
+        grad = torch.zeros((ctx.table_shape[0], rows.shape[1]), dtype=acc,
+                           device=g.device).index_put(
+            (flat,), torch.where(first[:, None], sums, 0.0), accumulate=True)
+        return grad.reshape(ctx.table_shape).to(ctx.table_dtype), None
+
+
+def _segment_sums(keys, rows):
+    """Over runs of equal ``keys`` (sorted): (a mask of each run's first
+    position, ``rows`` with each run's sum at that position). The sum is
+    a pairwise tree over the run in position order, one vectorized level
+    per doubling, so its order depends on the data alone."""
+    n = keys.numel()
+    pos = torch.arange(n, device=keys.device)
+    first = torch.cat([torch.ones_like(keys[:1], dtype=torch.bool),
+                       keys[1:] != keys[:-1]])
+    start = torch.cummax(torch.where(first, pos, 0), 0).values
+    # one past each run's last position: the next run's start
+    nxt = torch.cat([torch.where(first, pos, n)[1:], pos[:1] * 0 + n])
+    end = torch.cummin(nxt.flip(0), 0).values.flip(0)
+    rank = pos - start
+    step = 1
+    while step < n:
+        take = (rank % (2 * step) == 0) & (pos + step < end)
+        shifted = torch.cat([rows[step:], torch.zeros_like(rows[:step])])
+        rows = torch.where(take[:, None], rows + shifted, rows)
+        step *= 2
+    return first, rows
+
+
 def apply_embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    return _Embed.apply(table, tokens)
 
 
 # ---------------------------------------------------------------- init

@@ -12,8 +12,9 @@
   checkpointed launcher run stopped at 4 and resumed to 6 equals
   ``Session.fit(6)`` bit for bit.
 * What the port lacks raises ``NotImplementedError`` naming its ROADMAP
-  item: the stream runtime, the football, token and token_stream envs;
-  ``Session.serve`` and ``Session.pool`` work; the host,
+  item: the football env, the stream runtime's TPU meshes, the MoE and
+  encoder-decoder backbones; ``Session.serve`` and ``Session.pool``
+  work; the host,
   sync and async runtimes build and run. Without CUDA, ``build`` and the
   launcher raise unless ``cpu`` is asked for.
 """
@@ -180,11 +181,22 @@ def test_session_observers_and_describe():
     assert api.loads(session.describe()) == session.spec
 
 
+_LLM = dict(env={"name": "token_stream",
+                 "kwargs": {"vocab": 512, "batch": 2, "seq": 4}},
+            runtime="stream")
+
+
+def _backbone(**overrides):
+    return {"name": "backbone", "kwargs": {"arch": "starcoder2-3b",
+                                           "reduced": True, **overrides}}
+
+
 @pytest.mark.parametrize("change,item", [
-    (dict(runtime="stream"), "item 7"),
-    (dict(env="football"), "item 8"), (dict(env="token"), "item 7"),
-    (dict(env={"name": "token_stream",
-               "kwargs": {"vocab": 8, "batch": 2, "seq": 4}}), "item 7"),
+    (dict(_LLM, policy=_backbone(),
+          runtime={"name": "stream", "kwargs": {"mesh": "pod"}}), "item 9"),
+    (dict(env="football"), "item 8"),
+    (dict(_LLM, policy=_backbone(ffn_cycle=["moe"])), "item 7b"),
+    (dict(_LLM, policy=_backbone(is_encoder_decoder=True)), "item 7b"),
 ])
 def test_unported_parts_raise_not_implemented(change, item):
     spec = api.ExperimentSpec(**{"env": "catch", **change})

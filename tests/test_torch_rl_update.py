@@ -143,8 +143,14 @@ def test_init_from_params_seed_within_ulps(case):
 def test_policy_registry():
     te = envs.get_env("catch")
     assert models.policy_names() == ["backbone", "cnn", "mlp", "token"]
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        models.get_policy("backbone", te)
+    # the LLM policy: flat params, no per-step apply (the stream
+    # runtime's learner consumes it); what the port's backbone lacks
+    # raises naming its ROADMAP item
+    pol = models.get_policy("backbone", te, arch="rwkv6-7b", reduced=True)
+    assert pol.apply is None and pol.config.n_layers == 2
+    assert "layers.1.mixer.u" in pol.init(tdet.master_key(0))
+    with pytest.raises(NotImplementedError, match="queue 1, item 7b"):
+        models.get_policy("backbone", te, reduced=True, ffn_cycle=["moe"])
     with pytest.raises(KeyError, match="registered"):
         models.get_policy("transformer", te)
     # the mlp flattens image observations

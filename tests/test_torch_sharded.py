@@ -274,19 +274,26 @@ def test_launcher_two_processes_print_the_mesh_digest(tmp_path):
         intervals=3, batch={"n_replicas": 2})
     path = tmp_path / "spec.json"
     api.save(spec, str(path))
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    # the port stays bound from the probe to the store: process 0 serves
+    # the store on this very socket (distributed.STORE_FD_ENV), so no
+    # other process can take the port in between
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.distributed",
          "--spec", str(path), "--coordinator", f"127.0.0.1:{port}",
          "--num-processes", "2", "--process-id", str(i), "--device", "cpu"],
-        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=dict(env, **({distributed.STORE_FD_ENV: str(sock.fileno())} if i == 0
+                         else {})),
+        pass_fds=(sock.fileno(),) if i == 0 else (),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for i in range(2)]
     try:
         outs = [p.communicate(timeout=TIMEOUT) for p in procs]
     finally:
+        sock.close()
         for p in procs:
             if p.poll() is None:
                 p.kill()
