@@ -14,7 +14,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    reference test cases, at shapes off the TPU kernels' block multiples
    and at the shapes the main paths give it; flash attention also on
    strided views in the model's layout (ragged S, window, soft-cap, every
-   bf16 head dim), wkv6 also around its chunk length and with fast decay
+   bf16 head dim, 120 and 160 among them, which the kernel runs at the
+   padded widths 128 and 192; Dh 48 and 96 refused), at every serving
+   path's prefill shape, wkv6 also around its chunk length and with fast
+   decay
    (w down to 1e-4, and w = 0), and the chunked wkv6 against its plain
    chunked form; lru_scan bit for bit (``torch.equal``) on both of its
    kernels, the TMA ring and the per-thread one (ragged tiles, and rows
@@ -23,15 +26,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    width and full depth with random weights from seed 0, 4 prompts of 500
    tokens, 32 generated: StarCoder2-3B (flash attention in 30 layers),
    RecurrentGemma-9B (lru_scan in 26 RG-LRU layers, flash attention in 12
-   local-attention layers) and RWKV-6-7B (wkv6 in 32 layers, prefill and
-   every decode step). The kernel launch counts are zeroed just before
-   each run and read just after; then per prefill and per decode step.
-   The prefill logits are held against the same weights run with the
-   plain versions (for RWKV-6 beside the distance a reordering of the
-   plain wkv6's sum alone makes), a sampled run is repeated to show its
-   tokens do not change, the full-width model in fp32 is held against
-   its plain-version run, and a reduced fp32 config is held against the
-   CPU run of the same weights. Each model is freed before the next;
+   local-attention layers), RWKV-6-7B (wkv6 in 32 layers, prefill and
+   every decode step), Gemma-2-27B (flash in 46 layers), H2O-Danube3-4B
+   (24, Dh 120), StableLM-2-12B (40, Dh 160), Granite-3.0-1B-a400m (24,
+   MoE of 32 experts, top-8) and Llama-4-Scout at ``--n-layers 4`` (4, MoE
+   of 16 experts, top-1, a shared expert; its 48 layers do not fit one
+   card). The kernel launch counts are zeroed just before each run and
+   read just after; then per prefill and per decode step. The prefill
+   logits are held against the same weights run with the plain versions
+   (for RWKV-6 beside the distance a reordering of the plain wkv6's sum
+   alone makes), a sampled run is repeated to show its tokens do not
+   change, the full-width model in fp32 is held against its plain-version
+   run (Gemma-2 at 2 layers: 46 take 82.4 GB in fp32), and a reduced fp32
+   config is held against the CPU run of the same weights. For the MoE
+   models each of these also compares every MoE layer's routing (printed;
+   equal required card vs CPU) and checks that a group's padding rows
+   chose experts 0..K-1. Each model is freed before the next;
 5. times, beside the card's name and power limit: prefill, decode, and
    each kernel's time against its bound, its plain version and the
    library call that computes the same function, where one exists
@@ -46,23 +56,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    configuration (catch, mlp, rmsprop, alpha 4, n_envs 4, seed 3, 3
    intervals) for a2c, ppo and vtrace the card's reward/done streams
    equal the port's CPU run of the same params and the params are within
-   1e-5; ``examples/specs/quickstart.json`` runs twice on the card
-   bit-identically, its host and device env backends give equal streams,
-   and a K=2 run applies 40 updates; the device backend at n_envs 1024 (alpha 8, 10 intervals)
+   1e-5; ``examples/specs/quickstart.json`` (20 of its 40 intervals)
+   runs twice on the card bit-identically, its host and device env
+   backends give equal streams, and a K=2 run applies 20 updates; the
+   device backend at n_envs 1024 (alpha 8, 10 intervals)
    gives env steps/s with a warm-up run excluded, and a profile window
-   the device busy share and each stream's kernel time; the paper CNN at
+   of 3 intervals the device busy share and each stream's kernel time;
+   the paper CNN at
    its published widths runs one ``actor_forward`` and one learner pass
    on a synthetic trajectory (alpha 5, n_envs 16, (84, 84, 4)), held
    against the port's CPU at 1e-4 relative, with times. The path
    launches none of the port's kernels, and the counts say so;
 7. the entry point (``phase_run``): ``python -m repro_torch.launch.run
    --spec examples/specs/quickstart.json`` with no other flag; then with
-   ``--ckpt-dir --ckpt-every 10 --intervals 20`` and again with
-   ``--resume --intervals 40``, whose last checkpoint (the reference's
-   file format) equals an uninterrupted ``Session.fit(40)`` on the card:
+   ``--ckpt-dir --ckpt-every 5 --intervals 10`` and again with
+   ``--resume --intervals 20``, whose last checkpoint (the reference's
+   file format) equals an uninterrupted ``Session.fit(20)`` on the card:
    every capsule leaf ``torch.equal``, the episode-return stream equal; a
-   fit under a fault plan (the checkpoint at 20 truncated, the segment
-   from 20 failed once, ``max_restarts`` 2) recovers past the corrupt
+   fit under a fault plan (the checkpoint at 10 truncated, the segment
+   from 10 failed once, ``max_restarts`` 2) recovers past the corrupt
    checkpoint to the fault-free fit's params and returns; gridmaze
    (``examples/specs/pool_b.json``: scenario 7, mlp, ppo, K=2; the same
    with the CPU tests' reduced CNN and with ``examples/atari_a2c.py``'s
@@ -76,21 +88,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 8. the threaded host runtime and the baselines (``phase_host``): (a)
    ``python -m repro_torch.launch.run --spec
    examples/specs/quickstart.json --runtime host`` as typed, then
-   checkpointed and stopped at 20 and resumed to 40, whose last
-   checkpoint equals the ``mesh`` runtime's ``Session.fit(40)`` leaf for
+   checkpointed and stopped at 10 and resumed to 20, whose last
+   checkpoint equals the ``mesh`` runtime's ``Session.fit(20)`` leaf for
    leaf with the same episode-return stream; (b) host == mesh on the card
    (``torch.equal``) at K 1 and 2, with 1 and 4 actors, with and without
    the football spec's step-time model, and the card's host run against
    the port's CPU (streams exact, params within 1e-5); (c)
    ``examples/atari_a2c.py``'s contenders (mesh, sync, async with
-   V-trace at k=8) and the host runtime, 10 intervals each on the card
+   V-trace at k=8) and the host runtime, 6 intervals each on the card
    against the port's CPU: streams exact, the actions of interval 0 (at
    theta_0) exact, each one's first learner gradient within 1e-4
    relative per leaf; printed: the intervals whose actions differ later,
    the params' distance, beside the same for the CPU run from theta_0
    moved one ulp (what rounding alone does to this CNN under rmsprop),
-   and tail rewards; then the host runtime's device memory after 25
-   intervals within one parameter tree of that after 5; (d) an
+   and tail rewards; then the host runtime's device memory after 15
+   intervals within one parameter tree of that after 3; (d) an
    executor death and a NaN learner update under ``max_restarts`` 2
    recovering to the fault-free fit; (e) env steps/s of host, mesh, sync
    and async at the quickstart spec, the host runtime's profile split,
@@ -135,7 +147,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    --seq 512`` as typed (full width and depth: 30 layers, d_model 3072,
    bf16, Adam): finite losses, ms per step and tokens/s after the first
    step, peak memory beside the training state's reckoning, 60 flash
-   launches per step; (c) RecurrentGemma-9B (3 layers) and RWKV-6-7B (2
+   launches per step; the same for Granite-3.0-1B-a400m (24 layers, 48
+   flash a step) with its load-balance loss nonzero; (c)
+   RecurrentGemma-9B (3 layers) and RWKV-6-7B (2
    layers) at full width through ``python -m repro_torch.launch.run
    --spec``, with their launches per step (lru_scan 6 and flash 2; wkv6
    4), then the first step's loss and every gradient leaf, kernels
@@ -144,19 +158,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    (RWKV-6's beside a witness with the kernel's rounding) and the
    largest held at ``LLM_GRAD_REL_L2`` (fp32 1e-3; bf16 5e-2 for
    RecurrentGemma, none for RWKV-6, whose bf16 gradient moves up to 1.2
-   under any change of wkv6's rounding); (d) StarCoder2-3B at full width
-   with 2 layers: ``--ckpt-every 2 --steps 2``, then ``--resume --steps
-   4``, equal to a straight ``--steps 4`` in every checkpoint leaf; (e)
-   each family's reduced config in fp32, 3 stream-runtime steps on the
-   card and on the CPU from the same weights: losses
-   within 1e-4, SGD's params within 1e-5 of each leaf's largest entry,
-   and a rerun on the card bit for bit.
+   under any change of wkv6's rounding); the same first-step comparison
+   for Gemma-2 and StableLM-2 at 2 layers and H2O-Danube3 and
+   Granite-3.0-1B-a400m at 24, full width (leaves at 1e-3 in fp32 and
+   5e-2 in bf16; Granite's bf16 leaves printed beside its routing, and
+   its fp32 routing held: every row on the same experts and top-1); (d)
+   StarCoder2-3B at full width with 1 layer: ``--ckpt-every 2 --steps
+   2``, then ``--resume --steps 4``, equal to a straight ``--steps 4``
+   in every checkpoint leaf; (e)
+   each family's reduced config in fp32 (Granite with the capacity and
+   the dropless dispatch, Llama-4 with its shared expert and NoPE global
+   layer among them), 3 stream-runtime steps on the card and on the CPU
+   from the same weights: losses within 1e-4, SGD's params within 1e-5
+   of each leaf's largest entry, the MoE routing equal, and a rerun on
+   the card bit for bit.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Needs CUDA; imports nothing of jax.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -201,6 +223,10 @@ FLASH_CASES = [
     (1, 80, 2, 1, 16, True, 32, 0.0, 32, 32, torch.float32),
     (2, 192, 4, 2, 256, True, 0, 0.0, 128, 128, torch.bfloat16),
     (2, 192, 4, 2, 256, False, 0, 0.0, 128, 128, torch.float32),
+    # head dims the bf16 kernel runs at a padded width (128, 192)
+    (2, 128, 4, 2, 120, True, 0, 0.0, 64, 64, torch.bfloat16),
+    (1, 130, 4, 1, 160, True, 0, 0.0, 128, 128, torch.bfloat16),
+    (2, 96, 2, 2, 160, False, 0, 0.0, 32, 32, torch.bfloat16),
 ]
 # the model's layout as strided views (q, k, v slices of one fused
 # (B, S, H + 2 KV, Dh) tensor), unpadded: ragged S = 500 and 80, window < S,
@@ -213,10 +239,29 @@ FLASH_STRIDED = [
     (2, 80, 4, 4, 32, False, 0, 0.0, 128, 128, torch.bfloat16),
     (1, 80, 4, 2, 256, True, 48, 20.0, 128, 128, torch.bfloat16),
     (2, 500, 4, 2, 64, True, 100, 20.0, 128, 128, torch.float32),
+    (2, 500, 8, 2, 120, True, 0, 0.0, 128, 128, torch.bfloat16),
+    (1, 500, 4, 2, 120, True, 200, 30.0, 128, 128, torch.bfloat16),
+    (2, 80, 4, 4, 120, False, 0, 0.0, 128, 128, torch.bfloat16),
+    (2, 500, 4, 1, 160, True, 0, 50.0, 128, 128, torch.bfloat16),
+    (1, 80, 4, 2, 160, True, 48, 20.0, 128, 128, torch.bfloat16),
 ]
 MAIN = (4, 500, 24, 2, 128, True, 0, 0.0, 128, 128, torch.bfloat16)
 # RecurrentGemma-9B's local attention: MQA, Dh=256, window 2048
 RG_ATTN = (4, 500, 16, 1, 256, True, 2048, 0.0, 128, 128, torch.bfloat16)
+# the prefill shapes of the decoders of the MoE slice: H2O-Danube3 (Dh 120,
+# its window 4096 wider than the prompt), StableLM-2 (Dh 160), Gemma-2
+# (soft-cap 50, its local layers' window 4096), Granite-3.0-1B-a400m and
+# Llama-4-Scout (its global layers; the local ones' 8192 window masks
+# nothing more at S 500)
+DANUBE_ATTN = (4, 500, 32, 8, 120, True, 4096, 0.0, 128, 128, torch.bfloat16)
+STABLELM_ATTN = (4, 500, 32, 8, 160, True, 0, 0.0, 128, 128, torch.bfloat16)
+GEMMA_ATTN = (4, 500, 32, 16, 128, True, 4096, 50.0, 128, 128, torch.bfloat16)
+GRANITE_ATTN = (4, 500, 16, 8, 64, True, 0, 0.0, 128, 128, torch.bfloat16)
+LLAMA4_ATTN = (4, 500, 40, 8, 128, True, 0, 0.0, 128, 128, torch.bfloat16)
+PREFILL_ATTN = [MAIN, RG_ATTN, DANUBE_ATTN, STABLELM_ATTN, GEMMA_ATTN,
+                GRANITE_ATTN, LLAMA4_ATTN]
+# bf16 head dims the tensor-core kernel has no form for: refused, no fallback
+FLASH_REFUSED = (48, 96)
 
 # (B, S, D, dtype): the reference's LRU_CASES (chunk and bd do not apply),
 # shapes off the TPU kernel's block multiples, and the RG-LRU prefill shape
@@ -279,6 +324,8 @@ WKV_EDGE = [(2, T, 4, 64, dt) for T in (31, 32, 33, 500)
             for dt in (torch.float32, torch.bfloat16)]
 
 BATCH, PROMPT, GEN = 4, 500, 32
+# steady-state serving runs timed per path
+SERVE_RUNS = 2
 # flash kernel vs plain version: tests/test_kernels.py's tolerances. In
 # bf16 the kernel, as the TPU kernel, rounds P to bf16 before P V; the
 # plain version keeps it in fp32
@@ -299,13 +346,29 @@ SOURCES = {
 TENSOR_CORE_KERNELS = ("flash_attention", "wkv6")
 
 # arch -> launches expected (in serve.main: prefill + GEN-1 decode steps,
-# per prefill, per decode step); kernels not named must launch 0 times
+# per prefill, per decode step); kernels not named must launch 0 times.
+# Decode attention is plain in the reference and here: flash runs once
+# per attention layer and prefill
 SERVE_PATHS = {
     "starcoder2-3b": ({"flash_attention": 30}, {"flash_attention": 30}, {}),
     "recurrentgemma-9b": ({"flash_attention": 12, "lru_scan": 26},
                           {"flash_attention": 12, "lru_scan": 26}, {}),
     "rwkv6-7b": ({"wkv6": 32 + (GEN - 1) * 32}, {"wkv6": 32}, {"wkv6": 32}),
+    "gemma2-27b": ({"flash_attention": 46}, {"flash_attention": 46}, {}),
+    "h2o-danube-3-4b": ({"flash_attention": 24}, {"flash_attention": 24},
+                        {}),
+    "stablelm-12b": ({"flash_attention": 40}, {"flash_attention": 40}, {}),
+    "granite-moe-1b-a400m": ({"flash_attention": 24},
+                             {"flash_attention": 24}, {}),
+    "llama4-scout-17b-a16e": ({"flash_attention": 4},
+                              {"flash_attention": 4}, {}),
 }
+# the launcher's extra flags per arch: Llama-4-Scout's 48 layers (215.6 GB
+# in bf16) do not fit one card; 4 layers, one iRoPE cycle, do
+SERVE_ARGS = {"llama4-scout-17b-a16e": ("--n-layers", "4")}
+# the fp32 full-width check's depth where the full depth does not fit:
+# Gemma-2's 46 layers take 82.4 GB in fp32; 2, one local/global cycle
+FP32_LAYERS = {"gemma2-27b": 2}
 
 
 # the training phase: the goldens' configuration (tests/test_goldens.py)
@@ -314,14 +377,20 @@ GOLDEN = dict(alpha=4, n_envs=4, seed=3)
 GOLDEN_INTERVALS = 3
 PARAMS_TOL = 1e-5            # card vs CPU, the goldens' final params
 QUICKSTART = ROOT / "examples" / "specs" / "quickstart.json"
+# the quickstart spec's runs here: half its 40 intervals, to keep the
+# whole script inside its time limit
+QUICKSTART_INTERVALS = 20
 SCALE = dict(alpha=8, n_envs=1024, intervals=10)
+# the profiled window at that scale (about 14,000 kernels an interval)
+PROFILE_INTERVALS = 3
 CNN_TRAJ = dict(alpha=5, n_envs=16)
 CNN_REL_TOL = 1e-4           # card vs CPU, paper CNN at fp32, TF32 off
 
 # the entry point: launcher segments (stop at RUN_STOP, resume to
 # RUN_TOTAL, a checkpoint every RUN_EVERY), the fault plan's truncated
 # checkpoint and failed segment, gridmaze cells
-RUN_STOP, RUN_TOTAL, RUN_EVERY = 20, 40, 10
+# (short, to keep the whole script inside its time limit)
+RUN_STOP, RUN_TOTAL, RUN_EVERY = 10, 20, 5
 POOL_B = ROOT / "examples" / "specs" / "pool_b.json"
 # gridmaze's CNNs on its (9, 9, 3) boards: the reduced one of
 # tests/test_torch_gridmaze_interval.py, held at PARAMS_TOL; and
@@ -346,7 +415,7 @@ GRIDMAZE_SCALE = dict(alpha=8, n_envs=1024, intervals=10)
 # (gridmaze, its CNN, rmsprop, alpha 5, n_envs 8) and the host runtime as
 # a fourth, with their interval count; the rate runs' intervals; the
 # pipeline runs' intervals
-HOST_N = 6
+HOST_N = 4
 FOOTBALL = ROOT / "examples" / "specs" / "football_ppo.json"
 ATARI_SPEC = {
     "env": {"name": "gridmaze"},
@@ -361,16 +430,16 @@ ATARI_CONTENDERS = {
     "async": ("async+vtrace (k=8)",
               {"acfg": {"staleness": 8, "correction": "vtrace"}}),
     "host": ("HTS-RL(A2C), threaded", {})}
-# 10 intervals keep the whole script near half its time limit
-ATARI_INTERVALS = 10
-MEM_SHORT, MEM_LONG = 5, 25          # host runtime's memory, intervals
-RATE_INTERVALS = 10
+# 6 intervals keep the whole script inside its time limit
+ATARI_INTERVALS = 6
+MEM_SHORT, MEM_LONG = 3, 15          # host runtime's memory, intervals
+RATE_INTERVALS = 6
 PIPE_INTERVALS = 6
 
 # data parallelism, serving and tenancy (phase_scale): the sharded CNN
 # runs' intervals (a capsule handed over at half of them); the serving
 # launcher's load; the card-vs-CPU serving seeds
-SHARD_INTERVALS = 10
+SHARD_INTERVALS = 6
 SERVE_LOAD = ("--requests", "500", "--rate", "2000")
 SERVE_SEEDS = 16
 POOL_A = ROOT / "examples" / "specs" / "pool_a.json"
@@ -378,21 +447,25 @@ POOL_A = ROOT / "examples" / "specs" / "pool_a.json"
 # LLM-policy training (phase_llm_train). (a): each kernel's backward
 # against autograd of its plain version, at tests/test_kernels.py's
 # tolerances: flash at the reference grad test's case, off the blocks,
-# soft-capped, GQA and at the training shapes (StarCoder2-3B's and
-# RecurrentGemma-9B's attention at B 4, S 512); lru_scan at the reference
+# soft-capped, GQA and at the training shapes (StarCoder2-3B's,
+# RecurrentGemma-9B's and Granite-3.0-1B-a400m's attention at B 4,
+# S 512); lru_scan at the reference
 # grad test's shape with and without h0, off the blocks, in bf16, with
 # mixed dtypes and at RecurrentGemma's (4, 512, 4096); wkv6 at T 1, 31,
 # 32, 33, 512 with a tenth of w = 0, and at RWKV-6's (4, 512, 64, 64)
 TRAIN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 MAIN_TRAIN = (4, 512, 24, 2, 128, True, 0, 0.0, 128, 128, torch.bfloat16)
 RG_TRAIN = (4, 512, 16, 1, 256, True, 2048, 0.0, 128, 128, torch.bfloat16)
+GRANITE_TRAIN = (4, 512, 16, 8, 64, True, 0, 0.0, 128, 128, torch.bfloat16)
 TRAIN_FLASH = [
     (2, 48, 4, 2, 16, True, 16, 0.0, 32, 32, torch.float32),
     (1, 80, 2, 1, 16, True, 32, 0.0, 16, 16, torch.bfloat16),
     (1, 80, 2, 1, 16, True, 32, 0.0, 32, 32, torch.float32),
     (1, 96, 4, 4, 32, True, 0, 50.0, 32, 32, torch.float32),
     (2, 192, 4, 2, 256, False, 0, 0.0, 128, 128, torch.bfloat16),
-    MAIN_TRAIN, RG_TRAIN,
+    (2, 80, 4, 2, 120, True, 32, 30.0, 128, 128, torch.bfloat16),
+    (1, 96, 4, 1, 160, True, 0, 0.0, 128, 128, torch.bfloat16),
+    MAIN_TRAIN, RG_TRAIN, GRANITE_TRAIN,
 ]
 LRU_TRAIN = (4, 512, 4096, torch.float32)
 TRAIN_LRU = [((2, 32, 8, torch.float32), True),
@@ -407,10 +480,10 @@ TRAIN_WKV = [((2, T, 4, 64, torch.float32), "zero")
              for T in (1, 31, 32, 33, 512)] + [(WKV_TRAIN, "reference")]
 # (b): the main path as a user types it; its flash launches per step (30
 # layers, forward and the checkpointed layer's recompute)
-LLM_TRAIN = ("--arch", "starcoder2-3b", "--steps", "3", "--batch", "4",
-             "--seq", "512")
 LLM_STEPS, LLM_BATCH, LLM_SEQ = 3, 4, 512
-LLM_FLASH_PER_STEP = 60
+# arch -> flash launches per step, at full width and depth: StarCoder2-3B's
+# 30 layers and Granite-3.0-1B-a400m's 24 (the MoE slice's main path)
+LLM_TRAIN = {"starcoder2-3b": 60, "granite-moe-1b-a400m": 48}
 # (c): the other families at full width, depth cut: arch -> (n_layers,
 # launches per step). RecurrentGemma's one (rglru, rglru, local) cycle:
 # lru_scan forward, recompute and backward in 2 layers, flash forward
@@ -422,20 +495,52 @@ LLM_SPEC_STEPS = 2
 LLM_LOSS_TOL = 3e-2      # bf16, kernels vs plain versions, first step
 # (c) the largest per-leaf relative L2 gradient distance, kernels vs
 # plain versions, by dtype and family, read over seeds by
-# ``scripts/llm_grad_spread.py``. In fp32 the kernels' largest over 18
-# RWKV-6 seeds is 4.9e-4. RWKV-6's bf16 gradient is not bounded, only
-# printed: there any change of wkv6's rounding, the kernel's or a plain
-# witness's, moves a leaf 4e-4 to 1.2 by seed (its recurrence turns a
-# flipped bf16 bit into a large gradient change on some inputs)
-LLM_GRAD_REL_L2 = {"bfloat16": {"recurrentgemma-9b": 5e-2},
+# ``scripts/llm_grad_spread.py`` on an NVIDIA H100 80GB HBM3 at 700 W.
+# In fp32 the kernels' largest over 18 RWKV-6 seeds is 4.9e-4, over the
+# 5 of 6 Granite seeds whose routing agrees 2.1e-6 (on the sixth 2 of
+# 98,304 routed rows chose other experts and a leaf moved 5.8e-3). In
+# bf16 the largest over 6 seeds is 7.6e-3 (RecurrentGemma), 9.9e-3
+# (Gemma-2), 1.1e-2 (StableLM-2) and 4.2e-2 (Danube3, 24 layers: a deep
+# layer's key projection, whose gradient is small at random weights).
+# RWKV-6's bf16 gradient is not bounded, only printed: there any change
+# of wkv6's rounding, the kernel's or a plain witness's, moves a leaf
+# 4e-4 to 1.2 by seed (its recurrence turns a flipped bf16 bit into a
+# large gradient change on some inputs); nor is Granite's, where 13 % of
+# the routed rows choose other experts in bf16 (its leaves move 0.19 to
+# 0.22)
+LLM_GRAD_REL_L2 = {"bfloat16": {"recurrentgemma-9b": 5e-2,
+                                "gemma2-27b": 5e-2, "stablelm-12b": 5e-2,
+                                "h2o-danube-3-4b": 5e-2},
                    "float32": {"recurrentgemma-9b": 1e-3,
-                               "rwkv6-7b": 1e-3}}
+                               "rwkv6-7b": 1e-3, "gemma2-27b": 1e-3,
+                               "stablelm-12b": 1e-3,
+                               "h2o-danube-3-4b": 1e-3,
+                               "granite-moe-1b-a400m": 1e-3}}
+# (c'): the decoders of the MoE slice at full width, depth cut: arch ->
+# n_layers. Gemma-2 and StableLM-2 one cycle; H2O-Danube3 at its full 24
+# (fp32 params and two gradient trees: 47.5 GB); Granite-3.0-1B-a400m at
+# its full 24, its fp32 leaves bounded where its routing agrees (every
+# row on the same experts, the same top-1)
+LLM_FIRST_STEP = {"gemma2-27b": 2, "stablelm-12b": 2, "h2o-danube-3-4b": 24,
+                  "granite-moe-1b-a400m": 24}
 # (d): StarCoder2-3B at full width with its depth cut for the resume
-LLM_RESUME_LAYERS = 2
-# (e): reduced fp32 configs, card vs CPU over 3 steps
-LLM_KERNELS = {"starcoder2-3b": ("flash_attention",),
-               "recurrentgemma-9b": ("lru_scan", "flash_attention"),
-               "rwkv6-7b": ("wkv6",)}
+LLM_RESUME_LAYERS = 1
+# (e): reduced fp32 configs, card vs CPU over 3 steps: label -> (arch,
+# config overrides, the kernels it must launch); the MoE archs with their
+# routing held equal
+LLM_CARD_CPU = {
+    "starcoder2-3b": ("starcoder2-3b", {}, ("flash_attention",)),
+    "recurrentgemma-9b": ("recurrentgemma-9b", {},
+                          ("lru_scan", "flash_attention")),
+    "rwkv6-7b": ("rwkv6-7b", {}, ("wkv6",)),
+    "granite-moe-1b-a400m": ("granite-moe-1b-a400m", {},
+                             ("flash_attention",)),
+    "granite-moe-1b-a400m dropless": ("granite-moe-1b-a400m",
+                                      {"moe_impl": "dropless"},
+                                      ("flash_attention",)),
+    "llama4-scout-17b-a16e": ("llama4-scout-17b-a16e", {},
+                              ("flash_attention",)),
+}
 CARD_CPU_LOSS_TOL = 1e-4
 CARD_CPU_PARAMS_TOL = 1e-5
 
@@ -722,7 +827,7 @@ def _report(name: str, cases: list) -> None:
 def _flash_cases(gen) -> float:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     cases, main_err = [], 0.0
-    for case in FLASH_CASES + [MAIN, RG_ATTN]:
+    for case in FLASH_CASES + PREFILL_ATTN:
         B, S, H, KV, Dh, causal, window, cap, bq, bk, dt = case
         q, k, v = flash_inputs(case, gen)
         kw = dict(causal=causal, window=window, cap=cap, bq=bq, bk=bk)
@@ -736,7 +841,7 @@ def _flash_cases(gen) -> float:
                       "window": window, "cap": cap, "dtype": str(dt),
                       "max_abs_err": err, "tol": TOL[dt], "ok": ok})
         check(ok, f"flash_attention {cases[-1]}")
-        if case in (MAIN, RG_ATTN):
+        if case in PREFILL_ATTN:
             main_err = max(main_err, err)
     for case in FLASH_STRIDED:
         B, S, H, KV, Dh, causal, window, cap, bq, bk, dt = case
@@ -755,13 +860,14 @@ def _flash_cases(gen) -> float:
                       "max_abs_err": err, "tol": TOL[dt], "ok": ok})
         check(ok, f"flash_attention {cases[-1]}")
     # a bf16 head dim the tensor-core kernel has no form for is refused
-    q, k, v = flash_inputs((1, 64, 2, 1, 48, True, 0, 0.0, 0, 0,
-                            torch.bfloat16), gen)
-    try:
-        fa_ops.attend(q, k, v, use_kernel=True)
-        check(False, "flash_attention took a bf16 head dim of 48")
-    except ValueError as e:
-        print(f"flash_attention, bf16 Dh=48 refused: {e}")
+    for dh in FLASH_REFUSED:
+        q, k, v = flash_inputs((1, 64, 2, 1, dh, True, 0, 0.0, 0, 0,
+                                torch.bfloat16), gen)
+        try:
+            fa_ops.attend(q, k, v, use_kernel=True)
+            check(False, f"flash_attention took a bf16 head dim of {dh}")
+        except ValueError as e:
+            print(f"flash_attention, bf16 Dh={dh} refused: {e}")
     _report("flash_attention", cases)
     return main_err
 
@@ -921,15 +1027,69 @@ def _expect(counts: dict, expected: dict, what: str) -> None:
     check(counts == want, f"{what}: launches {counts}, expected {want}")
 
 
+@contextlib.contextmanager
+def recording_routes():
+    """Every MoE layer's routing while the block runs, in call order:
+    ``moe.route`` wrapped to keep (gate_idx, a mask of the routed rows
+    that are all zeros: a group's padding) on the host."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+    route, seen = moe.route, []
+
+    def rec(x, router, k):
+        out = route(x, router, k)
+        seen.append((out[2].cpu(), (x == 0).all(-1).cpu()))
+        return out
+
+    with mock.patch.object(moe, "route", rec):
+        yield seen
+
+
+def routing_diff(a: list, b: list, k: int, what: str) -> dict:
+    """Two runs' routings: how many routed rows chose another set of
+    experts, how many another top-1 expert (the one the aux loss
+    counts), and how many the same experts in another order (which
+    changes neither a token's output nor its capacity slots: a token takes
+    each expert once, so an expert's slots follow the token order); and
+    every zero (padding) row's experts, which must be 0..k-1 in both."""
+    check(len(a) == len(b) and all(
+        x.shape == y.shape for (x, _), (y, _) in zip(a, b)),
+        f"{what}: the two runs routed other shapes")
+    rows = sum(x.numel() // k for x, _ in a)
+    pairs = [(x, y) for (x, _), (y, _) in zip(a, b)]
+    per_call = [int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+                for x, y in pairs]
+    differ = sum(per_call)
+    top1 = sum(int((x[..., 0] != y[..., 0]).sum()) for x, y in pairs)
+    order = sum(int((x != y).any(-1).sum()) for x, y in pairs)
+    pads = sum(int(pad.sum()) for _, pad in a)
+    pad_ok = all(bool((idx[pad] == torch.arange(k)).all())
+                 for run in (a, b) for idx, pad in run)
+    print(f"{what}: routing, {len(a)} MoE calls: {differ} of {rows} routed "
+          f"rows chose another set of experts ({differ / max(rows, 1):.3e}; "
+          f"the first call {per_call[0] if per_call else 0} of "
+          f"{a[0][0].numel() // k if a else 0}), {top1} another top-1 "
+          f"expert ({top1 / max(rows, 1):.3e}), {order} differ in experts "
+          f"or their order; {pads} padding rows chose experts 0..{k - 1} "
+          f"in both runs {pad_ok}")
+    check(pad_ok, f"{what}: padding rows off experts 0..{k - 1}")
+    return {"calls": len(a), "rows": rows, "differ": differ,
+            "top1_differ": top1, "order_differ": order,
+            "first_call_differ": per_call[0] if per_call else 0,
+            "padding_rows": pads}
+
+
 def phase_serve(arch: str) -> dict:
     """One main path at full width; returns its launch counts and
-    steady-state times."""
+    steady-state times. For the MoE archs each comparison also compares
+    the routing of every MoE layer."""
     from repro_torch.launch import serve
     from repro_torch.models import backbone
 
     main_expect, prefill_expect, step_expect = SERVE_PATHS[arch]
-    argv = ["--arch", arch, "--batch", str(BATCH), "--prompt-len",
-            str(PROMPT), "--gen", str(GEN)]
+    argv = ["--arch", arch, *SERVE_ARGS.get(arch, ()), "--batch",
+            str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(GEN)]
     zero_launches()
     res = serve.main(argv)
     launches = read_launches()
@@ -963,22 +1123,32 @@ def phase_serve(arch: str) -> dict:
     _expect(per_prefill, prefill_expect, f"{arch} prefill")
     _expect(per_step, step_expect, f"{arch} decode step")
 
+    routing = {}
     plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False)
+    with torch.inference_mode(), recording_routes() as r_kernel:
+        k_logits, _, _ = backbone.prefill(res.model, cfg, res.prompts,
+                                          S + GEN)
     zero_launches()
-    with torch.inference_mode():
+    with torch.inference_mode(), recording_routes() as r_plain:
         plain_logits, _, _ = backbone.prefill(res.model, plain_cfg,
                                               res.prompts, S + GEN)
     _expect(read_launches(), {}, f"{arch} plain-version prefill")
+    check(torch.equal(k_logits, res.prefill_logits),
+          f"{arch}: a second prefill gave other logits")
     rel = ((res.prefill_logits - plain_logits).abs().max()
            / plain_logits.abs().max()).item()
     print(f"{arch} prefill logits, kernels vs plain versions (same weights):"
           f" relative max error {rel:.3e} (bound 5e-2)")
+    if cfg.n_experts:
+        routing["bf16 kernels vs plain"] = routing_diff(
+            r_kernel, r_plain, cfg.top_k,
+            f"{arch} prefill, kernels vs plain versions")
     check(rel < 5e-2, f"{arch} prefill logits vs plain versions")
     if arch == "rwkv6-7b":
         wkv_order_witness(res.model, plain_cfg, res.prompts, plain_logits)
 
     prefill_ms, tok_s = [], []
-    for _ in range(3):
+    for _ in range(SERVE_RUNS):
         _, _, p_s, d_s = serve.generate(res.model, cfg, res.prompts, GEN)
         prefill_ms.append(p_s * 1e3)
         tok_s.append(B * (GEN - 1) / d_s)
@@ -987,52 +1157,70 @@ def phase_serve(arch: str) -> dict:
             res.model, cfg, res.prompts, S + GEN))
         _, _, cache = backbone.prefill(res.model, cfg, res.prompts, S + GEN)
         tok = res.tokens[:, :1]
-        profile_window(f"{arch} decode, 8 steps", lambda: [
+        profile_window(f"{arch} decode, 4 steps", lambda: [
             backbone.decode_step(res.model, cfg, tok, cache, S + i)
-            for i in range(8)])
-    del res, plain_logits, cache
-    torch.cuda.empty_cache()
+            for i in range(4)])
+    del res, plain_logits, k_logits, cache
+    _free_cuda()
 
     tokens = []
     for _ in range(2):
         run = serve.main(argv + ["--temperature", "1.0", "--seed", "3"])
         tokens.append(run.tokens.clone())
         del run
-        torch.cuda.empty_cache()
+        _free_cuda()
     check(torch.equal(*tokens), f"{arch} sampled rerun gave other tokens")
     print(f"{arch} sampled rerun (temperature 1.0, seed 3): identical tokens")
 
-    fp32_cfg = dataclasses.replace(cfg, dtype="float32")
+    fp32_cfg = dataclasses.replace(
+        cfg, dtype="float32", n_layers=FP32_LAYERS.get(arch, cfg.n_layers))
     big, prompts = serve.build(fp32_cfg, BATCH, PROMPT, torch.device("cuda"))
     with torch.inference_mode():
-        k_logits, _, _ = backbone.prefill(big, fp32_cfg, prompts, S + GEN)
-        p_logits, _, _ = backbone.prefill(
-            big, dataclasses.replace(fp32_cfg, use_pallas_attention=False),
-            prompts, S + GEN)
+        with recording_routes() as r_kernel:
+            k_logits, _, _ = backbone.prefill(big, fp32_cfg, prompts,
+                                              S + GEN)
+        with recording_routes() as r_plain:
+            p_logits, _, _ = backbone.prefill(
+                big, dataclasses.replace(fp32_cfg,
+                                         use_pallas_attention=False),
+                prompts, S + GEN)
     rel32 = ((k_logits - p_logits).abs().max()
              / p_logits.abs().max()).item()
-    print(f"{arch} full width in fp32, kernels vs plain versions (same "
-          f"weights): prefill logits relative max error {rel32:.3e} "
-          "(bound 1e-3)")
+    print(f"{arch} full width in fp32 ({fp32_cfg.n_layers} layers), kernels "
+          f"vs plain versions (same weights): prefill logits relative max "
+          f"error {rel32:.3e} (bound 1e-3)")
+    if cfg.n_experts:
+        routing["fp32 kernels vs plain"] = routing_diff(
+            r_kernel, r_plain, cfg.top_k,
+            f"{arch} fp32 prefill, kernels vs plain versions")
     check(rel32 < 1e-3, f"{arch} fp32 prefill logits vs plain versions")
     del big, k_logits, p_logits
-    torch.cuda.empty_cache()
+    _free_cuda()
 
     small_cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
     small, prompts = serve.build(small_cfg, 2, 150, torch.device("cuda"))
-    g_logits, g_tokens, _, _ = serve.generate(small, small_cfg, prompts, 6)
-    c_logits, c_tokens, _, _ = serve.generate(small.to("cpu"), small_cfg,
-                                              prompts.cpu(), 6)
+    with recording_routes() as r_card:
+        g_logits, g_tokens, _, _ = serve.generate(small, small_cfg, prompts,
+                                                  6)
+    with recording_routes() as r_cpu:
+        c_logits, c_tokens, _, _ = serve.generate(small.to("cpu"), small_cfg,
+                                                  prompts.cpu(), 6)
     err = (g_logits.cpu() - c_logits).abs().max().item()
     same = torch.equal(g_tokens.cpu(), c_tokens)
     print(f"{arch} reduced fp32 ({small_cfg.n_layers} layers, prompt 150): "
           f"card vs CPU prefill logits max abs err {err:.3e} (tol 1e-4); "
           f"greedy tokens equal {same}")
+    if cfg.n_experts:
+        routing["reduced card vs CPU"] = row = routing_diff(
+            r_card, r_cpu, small_cfg.top_k,
+            f"{arch} reduced fp32 prefill and 5 decode steps, card vs CPU")
+        check(row["order_differ"] == 0,
+              f"{arch} reduced: card vs CPU routing")
     check(err < 1e-4 and same, f"{arch} reduced model: card vs CPU")
     del small
-    torch.cuda.empty_cache()
+    _free_cuda()
     return {"launches": launches, "lru_scan_tma": lru_tma,
-            "prefill_ms": prefill_ms, "tok_s": tok_s}
+            "prefill_ms": prefill_ms, "tok_s": tok_s, "routing": routing}
 
 
 def wkv6_reordered(r, k, v, w, u, s0=None):
@@ -1082,15 +1270,16 @@ def flash_times(case) -> dict:
     version and SDPA (both on (B, H, S, Dh) copies, their layout)."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    B, Sq, H, KV, Dh, causal, window, *_, dt = case
+    B, Sq, H, KV, Dh, causal, window, cap, *_, dt = case
     q, k, v = flash_inputs(case, torch.Generator(device="cuda").manual_seed(1))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    kw = dict(causal=causal, window=window, cap=0.0)
+    kw = dict(causal=causal, window=window, cap=cap)
     ms = cuda_ms(lambda: fa_kernel.flash_attention(q, k, v, **kw))
     plain_ms = cuda_ms(lambda: flash_attention_ref(qt, kt, vt, **kw))
     # SDPA computes the same function only where the window masks nothing
+    # and there is no soft-cap
     library_ms = None
-    if not window or window >= Sq:
+    if (not window or window >= Sq) and not cap:
         try:
             F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                            enable_gqa=True)
@@ -1117,13 +1306,14 @@ def flash_times(case) -> dict:
     # bytes: q, k, v read and o written once
     b = bound(nbytes(q, k, v, q), 4 * B * H * pairs * Dh, dt)
     print(f"  flash_attention (B={B} H={H} KV={KV} S={Sq} Dh={Dh} "
-          f"window={window} {dt} causal, model layout): kernel {ms:.4f} ms, "
+          f"window={window} cap={cap} {dt} causal, model layout): kernel "
+          f"{ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, SDPA "
           f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}; "
           f"bound {b['bound_ms']:.4f} ms ({b['bytes']} bytes, {b['ops']} "
           "FLOP)")
-    return {"shape": [B, Sq, H, KV, Dh], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, **b}
+    return {"shape": [B, Sq, H, KV, Dh], "window": window, "cap": cap,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **b}
 
 
 def lru_times() -> list:
@@ -1209,8 +1399,9 @@ def _entry(name: str, runs: dict, err: float, times: list,
     backward's time at its training shape, ``backward_max_abs_err`` the
     largest error of phase 10 (a)."""
     runs = dict(runs)
-    runs["train starcoder2-3b"] = {
-        "launches": llm["starcoder2"]["launches"], "lru_scan_tma": 0}
+    for arch, row in llm["launch"].items():
+        runs[f"train {arch}"] = {"launches": row["launches"],
+                                 "lru_scan_tma": 0}
     for arch, fam in llm["families"].items():
         runs[f"train {arch}"] = {"launches": fam["launches"],
                                  "lru_scan_tma": fam["lru_scan_tma"]}
@@ -1295,7 +1486,7 @@ def _train_quickstart(smi: str) -> dict:
     from repro_torch import api
     from repro_torch.core import mesh_runtime
     spec = api.load(str(QUICKSTART))
-    n = spec.intervals
+    n = QUICKSTART_INTERVALS
     print(f"train quickstart ({QUICKSTART.relative_to(ROOT)}): env "
           f"{spec.env.name}, policy {spec.policy.name}, {spec.algorithm}, "
           f"{spec.optimizer.name} {spec.optimizer.kwargs}, runtime "
@@ -1365,8 +1556,9 @@ def _train_scale(smi: str) -> dict:
           "steps/s (3 runs after a warm-up run) "
           + ", ".join(f"{x:.1f}" for x in sps) + "; ms per interval "
           + ", ".join(f"{1e3 * r.wall_time / n:.2f}" for r in runs))
-    prof = profile_window(f"train n_envs {SCALE['n_envs']}, {n} intervals",
-                          lambda: rt.run(n), by_stream=True)
+    prof = profile_window(
+        f"train n_envs {SCALE['n_envs']}, {PROFILE_INTERVALS} intervals",
+        lambda: rt.run(PROFILE_INTERVALS), by_stream=True)
     return {"sps": sps, "ms_per_interval": [1e3 * r.wall_time / n
                                             for r in runs], "profile": prof}
 
@@ -2591,10 +2783,11 @@ def _memory_reckoning(cfg) -> dict:
     return {"params": n, "state_bytes": state}
 
 
-def _llm_starcoder(smi: str) -> dict:
-    """(b): ``python -m repro_torch.launch.train --arch starcoder2-3b
-    --steps 3 --batch 4 --seq 512`` as typed (``main`` in this process, so
-    the launch counts and the peak memory can be read)."""
+def _llm_launch(arch: str, smi: str) -> dict:
+    """(b): ``python -m repro_torch.launch.train --arch <arch> --steps 3
+    --batch 4 --seq 512`` as typed (``main`` in this process, so the
+    launch counts and the peak memory can be read). The MoE arch's
+    load-balance loss (the step's ``aux``) must be nonzero."""
     from unittest import mock
 
     from repro_torch.configs.base import get_config
@@ -2611,43 +2804,50 @@ def _llm_starcoder(smi: str) -> dict:
 
         def timed(dg, batch):
             out = step(dg, batch)
-            stamps.append((time.perf_counter(), float(out[1]["loss"])))
+            stamps.append((time.perf_counter(), float(out[1]["loss"]),
+                           float(out[1]["aux"])))
             return out
         return timed
 
+    argv = ["--arch", arch, "--steps", str(LLM_STEPS), "--batch",
+            str(LLM_BATCH), "--seq", str(LLM_SEQ)]
     _free_cuda()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.perf_counter()
     with mock.patch.object(stream_runtime.learner, "make_train_step",
                            timed_steps):
-        train.main(list(LLM_TRAIN))
+        train.main(argv)
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    check(len(stamps) == LLM_STEPS, f"starcoder2-3b ran {len(stamps)} steps")
-    losses = [x for _, x in stamps]
-    check(all(np.isfinite(losses)), f"starcoder2-3b losses {losses}")
-    times = [t for t, _ in stamps]
+    check(len(stamps) == LLM_STEPS, f"{arch} ran {len(stamps)} steps")
+    losses = [x for _, x, _ in stamps]
+    aux = [a for _, _, a in stamps]
+    cfg = get_config(arch)
+    check(all(np.isfinite(losses + aux))
+          and (not cfg.n_experts or all(a > 0 for a in aux)),
+          f"{arch} losses {losses}, aux {aux}")
+    times = [t for t, _, _ in stamps]
     step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
     tok_s = LLM_BATCH * LLM_SEQ * len(step_ms) / (times[-1] - times[0])
-    cfg = get_config("starcoder2-3b")
     reck = _memory_reckoning(cfg)
     per_step = {k: v / LLM_STEPS for k, v in launches.items()}
-    print(f"llm_train (b) {' '.join(LLM_TRAIN)} on {smi}: losses "
-          f"{losses}; ms per step after the first {step_ms}; "
-          f"{tok_s:.1f} tokens/s; peak memory "
+    print(f"llm_train (b) launch.train {' '.join(argv)} on {smi}: losses "
+          f"{losses} (the RL loss; the load-balance aux {aux}); ms per step "
+          f"after the first {step_ms}; {tok_s:.1f} tokens/s; peak memory "
           f"{peak / 1e9:.2f} GB (max_memory_allocated) against the "
           f"training state's {reck['state_bytes'] / 1e9:.2f} GB "
           f"({reck['params']:,} params: params, params_prev, grads in bf16,"
           f" Adam m and v fp32); launches {launches}, per step {per_step}; "
           f"{wall:.1f} s in all")
-    _expect(launches, {"flash_attention": LLM_FLASH_PER_STEP * LLM_STEPS},
-            "starcoder2-3b training")
+    _expect(launches, {"flash_attention": LLM_TRAIN[arch] * LLM_STEPS},
+            f"{arch} training")
     _free_cuda()
-    return {"losses": losses, "step_ms": step_ms, "tokens_s": tok_s,
-            "peak_bytes": peak, **reck, "launches": launches,
-            "launches_per_step": per_step, "wall_s": wall}
+    return {"losses": losses, "aux": aux, "step_ms": step_ms,
+            "tokens_s": tok_s, "peak_bytes": peak, **reck,
+            "launches": launches, "launches_per_step": per_step,
+            "wall_s": wall}
 
 
 def _train_grads(cfg, params, batch, use_kernel: bool):
@@ -2723,9 +2923,12 @@ def _first_step(arch: str, n_layers: int, dtype: str,
     kernels against plain versions, on the weights of seed 0 in
     ``dtype``. For RWKV-6 each leaf's distance is printed beside that of
     a witness with the kernel's own rounding: the kernel's ``Function``
-    with its binding replaced by ``wkv6_chunked_ref``. The loss is held
-    at ``loss_tol``; the leaves at LLM_GRAD_REL_L2[dtype][arch] where
-    that is set."""
+    with its binding replaced by ``wkv6_chunked_ref``. For an MoE arch
+    the two runs' routing is compared (forward and the checkpointed
+    recompute), and in fp32 every row must choose the same experts and
+    the same top-1 (a swap of two near-equal gates only reorders a row:
+    PERF.md §6). The loss is held at ``loss_tol``; the leaves at
+    LLM_GRAD_REL_L2[dtype][arch] where that is set."""
     from unittest import mock
 
     from repro_torch import models
@@ -2740,8 +2943,17 @@ def _first_step(arch: str, n_layers: int, dtype: str,
     params = policy.init(determinism.master_key(0, device="cuda"))
     batch = {k: v.cuda() for k, v in TokenStream(
         cfg.vocab_size, LLM_BATCH, LLM_SEQ, 0).skip(1).next_batch().items()}
-    loss_k, grads_k = _train_grads(cfg, params, batch, True)
-    loss_p, grads_p = _train_grads(cfg, params, batch, False)
+    with recording_routes() as r_kernel:
+        loss_k, grads_k = _train_grads(cfg, params, batch, True)
+    with recording_routes() as r_plain:
+        loss_p, grads_p = _train_grads(cfg, params, batch, False)
+    routing = None
+    if cfg.n_experts:
+        routing = routing_diff(
+            r_kernel, r_plain, cfg.top_k,
+            f"llm_train (c) {arch} {dtype} first step, kernels vs plain "
+            "versions")
+    del r_kernel, r_plain
     rel = _rel_l2(grads_k, grads_p)
     del grads_k
     witness = {}
@@ -2767,15 +2979,18 @@ def _first_step(arch: str, n_layers: int, dtype: str,
           + (f"{bound:.0e})" if bound else "none: printed, see "
              "LLM_GRAD_REL_L2)"))
     check(abs(loss_k - loss_p) <= loss_tol
-          and (bound is None or rel[worst] <= bound),
+          and (bound is None or rel[worst] <= bound)
+          and (routing is None or dtype != "float32"
+               or routing["differ"] == routing["top1_differ"] == 0),
           f"{arch} {dtype}: first step kernels vs plain versions")
     return {"loss_kernel": loss_k, "loss_plain": loss_p,
             "grad_rel_l2_max": [worst, rel[worst]], "bound": bound,
-            "witness_rel_l2_max": max(witness.values(), default=None)}
+            "witness_rel_l2_max": max(witness.values(), default=None),
+            "routing": routing}
 
 
 def _llm_resume(tmp: Path) -> dict:
-    """(d): StarCoder2-3B at full width with 2 layers through the
+    """(d): StarCoder2-3B at full width with 1 layer through the
     launcher: stopped at 2 and resumed to 4 equals an uninterrupted 4
     steps, every checkpoint leaf."""
     from repro_torch.launch import train
@@ -2814,7 +3029,9 @@ def _llm_card_vs_cpu() -> dict:
     """(e): each family's reduced config in fp32, 3 steps of the stream
     runtime on the card (kernels) and on the CPU (plain versions) from
     the same weights: SGD's losses and params, Adam's losses; and a
-    rerun on the card, bit for bit."""
+    rerun on the card, bit for bit. The MoE configs (Granite with the
+    capacity and the dropless dispatch; Llama-4 with its shared expert
+    and NoPE global layer) also route every row alike on both."""
     from repro_torch import optim
     from repro_torch.configs.base import get_config
     from repro_torch.core.engine import HTSConfig
@@ -2823,9 +3040,10 @@ def _llm_card_vs_cpu() -> dict:
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.models import backbone
     rows = {}
-    for arch in ("starcoder2-3b", "recurrentgemma-9b", "rwkv6-7b"):
+    for label, (arch, overrides, kernels) in LLM_CARD_CPU.items():
         cfg = dataclasses.replace(get_config(arch).reduced(),
-                                  dtype="float32", use_pallas_attention=True)
+                                  dtype="float32", use_pallas_attention=True,
+                                  **overrides)
         model = backbone.init_params(cfg, torch.Generator().manual_seed(0),
                                      "cpu")
         params = {n: p.detach() for n, p in model.named_parameters()}
@@ -2838,11 +3056,19 @@ def _llm_card_vs_cpu() -> dict:
                     optim.get_optimizer(opt_name, **kw), HTSConfig(), cfg,
                     device=dev)
                 zero_launches()
-                out = rt.run(3)
+                with recording_routes() as routes:
+                    out = rt.run(3)
                 runs.setdefault(dev, []).append(
-                    (out.metrics["loss"], rt.state().algo, read_launches()))
-            (l_gpu, s_gpu, n_gpu), (_, s_again, _) = runs["cuda"]
-            l_cpu, s_cpu, n_cpu = runs["cpu"][0]
+                    (out.metrics["loss"], rt.state().algo, read_launches(),
+                     routes))
+            (l_gpu, s_gpu, n_gpu, r_gpu), (_, s_again, _, _) = runs["cuda"]
+            l_cpu, s_cpu, n_cpu, r_cpu = runs["cpu"][0]
+            route_row = None
+            if cfg.n_experts:
+                route_row = routing_diff(
+                    r_gpu, r_cpu, cfg.top_k,
+                    f"llm_train (e) {label} reduced fp32, {opt_name}, card "
+                    "vs CPU")
             rerun = all(torch.equal(x, y) for x, y in zip(
                 tree_leaves(s_gpu), tree_leaves(s_again)))
             loss_err = float(np.abs(l_gpu - l_cpu).max())
@@ -2850,10 +3076,10 @@ def _llm_card_vs_cpu() -> dict:
                        / s_cpu.params[n].abs().max().clamp_min(1e-30)).item()
                       for n in s_cpu.params)
             ok = (rerun and loss_err <= CARD_CPU_LOSS_TOL
-                  and all(v > 0 for k, v in n_gpu.items()
-                          if k in LLM_KERNELS[arch])
+                  and all(n_gpu[k] > 0 for k in kernels)
+                  and (route_row is None or route_row["order_differ"] == 0)
                   and (opt_name != "sgd" or par <= CARD_CPU_PARAMS_TOL))
-            print(f"llm_train (e) {arch} reduced fp32, {opt_name}, 3 steps: "
+            print(f"llm_train (e) {label} reduced fp32, {opt_name}, 3 steps: "
                   f"card vs CPU losses max abs err {loss_err:.3e} (tol "
                   f"{CARD_CPU_LOSS_TOL}); params max err relative to each "
                   f"leaf's largest {par:.3e} ("
@@ -2862,10 +3088,11 @@ def _llm_card_vs_cpu() -> dict:
                      "entries by their own size")
                   + f"); card rerun bit for bit {rerun}; card launches "
                   f"{n_gpu}")
-            check(ok, f"{arch} {opt_name}: card vs CPU")
+            check(ok, f"{label} {opt_name}: card vs CPU")
             row[opt_name] = {"loss_err": loss_err, "params_rel_err": par,
-                             "rerun_equal": rerun, "launches": n_gpu}
-        rows[arch] = row
+                             "rerun_equal": rerun, "launches": n_gpu,
+                             "routing": route_row}
+        rows[label] = row
     _free_cuda()
     return rows
 
@@ -2878,11 +3105,16 @@ def phase_llm_train() -> dict:
     res = {"backward": _llm_backwards()}
     res["backward_times"] = _bwd_times()
     _free_cuda()
-    res["starcoder2"] = _llm_starcoder(smi)
+    res["launch"] = {arch: _llm_launch(arch, smi) for arch in LLM_TRAIN}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_llm_") as d:
         res["families"] = {arch: _llm_spec_run(arch, smi, Path(d))
                            for arch in LLM_SPEC_RUNS}
         res["resume"] = _llm_resume(Path(d))
+    res["first_step"] = {
+        arch: {dtype: _first_step(arch, n_layers, dtype, tol)
+               for dtype, tol in (("bfloat16", LLM_LOSS_TOL),
+                                  ("float32", CARD_CPU_LOSS_TOL))}
+        for arch, n_layers in LLM_FIRST_STEP.items()}
     res["card_vs_cpu"] = _llm_card_vs_cpu()
     print(f"llm_train: phase {time.perf_counter() - t0:.1f} s")
     print("llm_train: " + json.dumps(res, default=str))
@@ -2917,11 +3149,12 @@ def main() -> int:
     smi = nvidia_smi()
     print(f"times on {smi}:")
     for arch, run in runs.items():
-        print(f"  {arch} prefill {BATCH}x{PROMPT} ms (3 runs): "
+        print(f"  {arch} prefill {BATCH}x{PROMPT} ms ({SERVE_RUNS} runs): "
               + ", ".join(f"{x:.3f}" for x in run["prefill_ms"]))
         print(f"  {arch} decode tok/s, {BATCH} rows x {GEN - 1} steps "
-              "(3 runs): " + ", ".join(f"{x:.1f}" for x in run["tok_s"]))
-    times = {"flash_attention": [flash_times(MAIN), flash_times(RG_ATTN)],
+              f"({SERVE_RUNS} runs): "
+              + ", ".join(f"{x:.1f}" for x in run["tok_s"]))
+    times = {"flash_attention": [flash_times(c) for c in PREFILL_ATTN],
              "lru_scan": lru_times(),
              "wkv6": [wkv_times(WKV_MAIN), wkv_times(WKV_DECODE)]}
     print("phase seconds: " + json.dumps(seconds))

@@ -6,11 +6,11 @@ change only wkv6's rounding move them.
     python3 scripts/llm_grad_spread.py [--arch rwkv6-7b] [--seeds 6]
 
 For each seed s in 0 .. seeds-1 the weights of the model at full width
-with ``chip_smoke.py``'s phase 10 (c) depth are drawn from seed s and
-the batch is the ``TokenStream`` batch 1 of seed s (4 x 512). In bf16
-and in fp32 the gradient of the RL loss is taken on the card through
-the plain versions and through the kernels, and for RWKV-6 through two
-witnesses:
+with ``chip_smoke.py``'s phase 10 (c) or (c') depth are drawn from seed
+s and the batch is the ``TokenStream`` batch 1 of seed s (4 x 512). In
+bf16 and in fp32 the gradient of the RL loss is taken on the card
+through the plain versions and through the kernels, and for RWKV-6
+through two witnesses:
 
 * ``chunked``: the kernel's own ``autograd.Function`` with its binding
   replaced by ``wkv6_chunked_ref``, the kernel's chunked algorithm in
@@ -20,10 +20,11 @@ witnesses:
 
 It prints, per seed and dtype, each run's relative L2 distance from the
 plain run for every ``mixer.u`` leaf and the largest over the other
-leaves, and at the end one JSON line with every reading and a summary
-per dtype and group: the kernel run's largest, each witness's smallest,
-and the largest ratio of the kernel run's distance to each witness's on
-the same seed.
+leaves (with its name), the loss's difference and, for an MoE arch, the
+two runs' routing (``chip_smoke.routing_diff``); at the end one JSON
+line with every reading and a summary per dtype and group: the kernel
+run's largest, each witness's smallest, and the largest ratio of the
+kernel run's distance to each witness's on the same seed.
 """
 from __future__ import annotations
 
@@ -77,8 +78,9 @@ def _summarize(readings: list, group: list, witnesses) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="rwkv6-7b",
-                    choices=sorted(chip_smoke.LLM_SPEC_RUNS))
+    depth = {**{a: n for a, (n, _) in chip_smoke.LLM_SPEC_RUNS.items()},
+             **chip_smoke.LLM_FIRST_STEP}
+    ap.add_argument("--arch", default="rwkv6-7b", choices=sorted(depth))
     ap.add_argument("--seeds", type=int, default=6)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -89,7 +91,7 @@ def main(argv=None) -> int:
     from repro_torch.data.pipeline import TokenStream
 
     smi = chip_smoke.nvidia_smi()
-    n_layers = chip_smoke.LLM_SPEC_RUNS[args.arch][0]
+    n_layers = depth[args.arch]
     witnesses = _witnesses(args.arch)
     seeds = range(args.seeds)
     result = {"arch": args.arch, "n_layers": n_layers, "device": smi,
@@ -105,25 +107,39 @@ def main(argv=None) -> int:
             batch = {k: v.cuda() for k, v in TokenStream(
                 cfg.vocab_size, chip_smoke.LLM_BATCH, chip_smoke.LLM_SEQ,
                 seed).skip(1).next_batch().items()}
-            _, g_plain = chip_smoke._train_grads(cfg, params, batch, False)
+            with chip_smoke.recording_routes() as r_plain:
+                l_plain, g_plain = chip_smoke._train_grads(cfg, params,
+                                                           batch, False)
             row = {"seed": seed}
             for name, (use_kernel, patch) in [
                     ("kernel", (True, None)), *witnesses.items()]:
                 if patch is None:
-                    _, g = chip_smoke._train_grads(cfg, params, batch, True)
+                    with chip_smoke.recording_routes() as r_kernel:
+                        loss, g = chip_smoke._train_grads(cfg, params,
+                                                          batch, True)
+                    row["loss_diff"] = abs(loss - l_plain)
                 else:
                     with patch():
                         _, g = chip_smoke._train_grads(cfg, params, batch,
                                                        use_kernel)
-                row[name] = _groups(chip_smoke._rel_l2(g, g_plain))
+                rel = chip_smoke._rel_l2(g, g_plain)
+                row[name] = _groups(rel)
+                if name == "kernel":
+                    row["largest"] = max(rel, key=rel.get)
                 del g
+            if cfg.n_experts:
+                row["routing"] = chip_smoke.routing_diff(
+                    r_kernel, r_plain, cfg.top_k,
+                    f"{dtype} seed {seed}, kernels vs plain versions")
+            del r_kernel, r_plain
             del g_plain, params
             torch.cuda.empty_cache()
             readings.append(row)
             print(f"{dtype} seed {seed}: " + "; ".join(
                 f"{n} " + ", ".join(f"{w} {row[w][n]:.4e}"
                                     for w in ["kernel", *witnesses])
-                for n in row["kernel"]), flush=True)
+                for n in row["kernel"]) + f" ({row['largest']}); loss "
+                f"|diff| {row['loss_diff']:.3e}", flush=True)
         names = list(readings[0]["kernel"])
         summary = {n: _summarize(readings, [n], witnesses) for n in names}
         u = [n for n in names if n.endswith("mixer.u")]

@@ -169,9 +169,9 @@ def get_config(name: str) -> ModelConfig:
         _load_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; the port registers "
-                       f"{sorted(_REGISTRY)} (the MoE, encoder-decoder and "
-                       "VLM archs wait for later slices, ROADMAP queue 1, "
-                       "item 7b)")
+                       f"{sorted(_REGISTRY)} (whisper-medium, an "
+                       "encoder-decoder, and qwen2-vl-72b, a VLM, wait for "
+                       "a later slice, ROADMAP queue 1, item 7b)")
     return _REGISTRY[name]
 
 
@@ -184,4 +184,6 @@ def list_configs() -> Tuple[str, ...]:
 def _load_all() -> None:
     # import side-effect registers every config module in this package
     from repro_torch.configs import (  # noqa: F401
-        recurrentgemma_9b, rwkv6_7b, starcoder2_3b)
+        gemma2_27b, granite_moe_1b_a400m, h2o_danube_3_4b,
+        llama4_scout_17b_a16e, recurrentgemma_9b, rwkv6_7b, stablelm_12b,
+        starcoder2_3b)

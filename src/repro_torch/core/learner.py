@@ -37,12 +37,11 @@ def _skeleton(cfg: ModelConfig) -> backbone.Backbone:
 
 
 def policy_hidden(params: dict, cfg: ModelConfig, batch, remat: bool = True):
-    """(hidden (B, S, D), aux): aux is 0, the dense decoder has no
-    auxiliary loss."""
-    hidden = torch.func.functional_call(
+    """(hidden (B, S, D), aux): aux is the MoE layers' load-balance loss
+    summed over layers (0 for a dense decoder)."""
+    return torch.func.functional_call(
         _skeleton(cfg), params, (cfg, batch["tokens"]),
         {"positions": batch.get("positions"), "remat": remat})
-    return hidden, torch.zeros((), device=hidden.device)
 
 
 def _heads(h, lm_head, value_head, cfg: ModelConfig):
@@ -112,13 +111,22 @@ def _chunked_rl_loss(params: dict, cfg: ModelConfig, hidden, batch,
     return losses.LossStats(total, pg, vl, ent)
 
 
-def rl_loss(params: dict, cfg: ModelConfig, batch, algorithm: str = "a2c",
-            value_coef: float = 0.5, entropy_coef: float = 0.01,
-            ppo_clip: float = 0.2, loss_chunk: int = 512):
-    """(total + aux, LossStats) over a (B, S) token batch."""
+def rl_loss_parts(params: dict, cfg: ModelConfig, batch,
+                  algorithm: str = "a2c", value_coef: float = 0.5,
+                  entropy_coef: float = 0.01, ppo_clip: float = 0.2,
+                  loss_chunk: int = 512):
+    """(LossStats, aux) over a (B, S) token batch: the RL loss and the
+    MoE load-balance loss apart."""
     hidden, aux = policy_hidden(params, cfg, batch)
     st = _chunked_rl_loss(params, cfg, hidden, batch, algorithm,
                           value_coef, entropy_coef, ppo_clip, loss_chunk)
+    return st, aux
+
+
+def rl_loss(params: dict, cfg: ModelConfig, batch, algorithm: str = "a2c",
+            **kwargs):
+    """(total + aux, LossStats) over a (B, S) token batch."""
+    st, aux = rl_loss_parts(params, cfg, batch, algorithm, **kwargs)
     return st.total + aux, st
 
 
@@ -164,12 +172,13 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
         n_microbatches = bc.grad_accumulation
 
     def grad_one(params: dict, batch: dict):
+        """(grads, the four LossStats and aux, detached)."""
         leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
         with torch.enable_grad():
-            loss, st = rl_loss(leaves, cfg, batch, algorithm)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        return (dict(zip(leaves, grads)),
-                losses.LossStats(*(x.detach() for x in st)))
+            st, aux = rl_loss_parts(leaves, cfg, batch, algorithm)
+            grads = torch.autograd.grad(st.total + aux,
+                                        list(leaves.values()))
+        return dict(zip(leaves, grads)), [x.detach() for x in (*st, aux)]
 
     def train_step(dg: delayed_grad.DelayedGradState, batch: dict):
         if n_microbatches <= 1:
@@ -178,17 +187,18 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
             grads = {n: torch.zeros(p.shape, dtype=torch.float32,
                                     device=p.device)
                      for n, p in dg.params_prev.items()}
-            st = [torch.zeros((), device=grads["lm_head"].device)] * 4
+            st = [torch.zeros((), device=grads["lm_head"].device)] * 5
             for mb in _microbatches(batch, n_microbatches):
                 g, s = grad_one(dg.params_prev, mb)
                 grads = {n: grads[n] + g[n] for n in grads}
                 st = [a + b for a, b in zip(st, s)]
                 del g
             grads = {n: g / n_microbatches for n, g in grads.items()}
-            st = losses.LossStats(*(x / n_microbatches for x in st))
+            st = [x / n_microbatches for x in st]
         new_dg = delayed_grad.update_(dg, grads, opt)
-        stats = {"loss": st.total, "pg": st.pg, "value": st.value,
-                 "entropy": st.entropy}
+        # the reference's four stats (its "loss" is the RL loss without
+        # aux), and aux beside them
+        stats = dict(zip(("loss", "pg", "value", "entropy", "aux"), st))
         return new_dg, stats
 
     return train_step

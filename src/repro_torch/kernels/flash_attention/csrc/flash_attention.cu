@@ -29,9 +29,15 @@
 // while P_j V_j is on the tensor cores. Masks are evaluated only on the key
 // tiles that need them. The shared tiles use the 128-byte swizzle (64-byte
 // at Dh 32, 32-byte at Dh 16) that TMA writes and `wgmma` reads; Dh > 64 is
-// held as Dh/64 slabs of 64 columns. Dh in {16, 32, 64, 128, 256}. At Dh
-// 256 the O accumulator is 128 fp32 registers a thread, and Q plus two
-// stages of K and V take 96 KB of shared memory (48 KB at Dh 128), so
+// held as slabs of 64 columns. Dh in {16, 32, 64, 120, 128, 160, 256}. A
+// Dh that is not a multiple of 64 (H2O-Danube3's 120, StableLM-2's 160) runs
+// at the padded width DP, 128 and 192: the tensor maps carry the real Dh as
+// their inner extent, so TMA fills the last slab's columns past Dh with
+// zeros; both products run over DP (the zero columns add nothing to Q K^T,
+// and give zero output columns in P V), and only columns < Dh are stored.
+// Nothing is padded in device memory. At Dh 256 the O accumulator is 128
+// fp32 registers a thread (96 at DP 192), and Q plus two stages of K and V
+// take 96 KB of shared memory (72 KB at DP 192, 48 KB at Dh 128), so
 // several blocks share an SM. The TMA encoder (`cuTensorMapEncodeTiled`, a
 // driver-API call) is fetched with `cudaGetDriverEntryPoint`, so the library
 // links no -lcuda.
@@ -282,8 +288,14 @@ constexpr int kKeys = 32;
 constexpr int kWgThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory geometry of a ROWS-row tile of head dim DH. A row of one
-// slab is one swizzle row: 128 B (64 bf16) when DH >= 64, else DH * 2 bytes.
+// The width the bf16 kernel runs head dim DH at: DH below 64, else DH
+// rounded up to whole 64-column slabs (120 -> 128, 160 -> 192).
+template <int DH>
+constexpr int kPadded = DH < 64 ? DH : (DH + 63) / 64 * 64;
+
+// Shared-memory geometry of a ROWS-row tile of (padded) head dim DH. A row
+// of one slab is one swizzle row: 128 B (64 bf16) when DH >= 64, else DH * 2
+// bytes.
 template <int DH, int ROWS>
 struct Tile {
   static constexpr int kCols = DH >= 64 ? 64 : DH;      // columns per slab
@@ -514,7 +526,8 @@ __device__ __forceinline__ void rescale_and_pack(float (&acc)[DH / 2],
 
 // The loop is software-pipelined: while P_j V_j runs on the tensor cores,
 // S_{j+1} (issued just before it) is already done and its softmax runs on
-// the CUDA cores; the output rescale waits for P_j V_j.
+// the CUDA cores; the output rescale waits for P_j V_j. Head dim DH runs at
+// the padded width DP; only DH columns are stored.
 template <int DH>
 __global__ void __launch_bounds__(kWgThreads)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
@@ -523,8 +536,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
                __nv_bfloat16* __restrict__ o, Strides so, int H, int KV,
                int Sq, int Sk, int causal, int window, float cap, float scale,
                int kv_len) {
-  using QT = Tile<DH, kRows>;
-  using KT = Tile<DH, kKeys>;
+  constexpr int DP = kPadded<DH>;
+  using QT = Tile<DP, kRows>;
+  using KT = Tile<DP, kKeys>;
   extern __shared__ uint8_t smem_raw[];
   // every tile on a 1024 B boundary: the 128 B swizzle repeats every 1024 B
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -554,13 +568,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
   auto load_k = [&](int i) {
     const uint32_t bar = bar_k + 8 * (i % kStages);
     mbar_expect_tx(bar, KT::kBytes);
-    load_tile<DH, kKeys>(skv + 2 * (i % kStages) * KT::kBytes, &map_k, bar, g,
+    load_tile<DP, kKeys>(skv + 2 * (i % kStages) * KT::kBytes, &map_k, bar, g,
                          k_first + i * kKeys, b);
   };
   auto load_v = [&](int i) {
     const uint32_t bar = bar_v + 8 * (i % kStages);
     mbar_expect_tx(bar, KT::kBytes);
-    load_tile<DH, kKeys>(skv + (2 * (i % kStages) + 1) * KT::kBytes, &map_v,
+    load_tile<DP, kKeys>(skv + (2 * (i % kStages) + 1) * KT::kBytes, &map_v,
                          bar, g, k_first + i * kKeys, b);
   };
   if (tid == 0) {
@@ -568,7 +582,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
     for (int s = 0; s < 2 * kStages; ++s) mbar_init(bar_k + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(bar_q, QT::kBytes);
-    load_tile<DH, kRows>(sq, &map_q, bar_q, h, q0, b);
+    load_tile<DP, kRows>(sq, &map_q, bar_q, h, q0, b);
     for (int j = 0; j < kStages && j < n_tiles; ++j) {
       load_k(j);
       load_v(j);
@@ -581,9 +595,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
   const SoftmaxArgs args{q0, Sk, causal, window, kv_len, cap, scale,
                          scale * kLog2e};
 
-  float acc[DH / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float s[kKeys / 2];
 #pragma unroll
   for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.f;
@@ -595,10 +609,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
   if (n_tiles > 0) {
     mbar_wait(bar_k, 0);
     wgmma_fence();
-    issue_qk<DH>(s, sq, skv);
+    issue_qk<DP>(s, sq, skv);
     wgmma_wait_all();
     softmax_tile(s, m, l, corr, k_first, row_a, col_q, args);
-    rescale_and_pack<DH>(acc, corr, s, pa);
+    rescale_and_pack<DP>(acc, corr, s, pa);
     __syncthreads();  // K_0 read by every warp: its stage takes K_2
     if (tid == 0 && kStages < n_tiles) load_k(kStages);
   }
@@ -610,8 +624,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
     mbar_wait(bar_k + 8 * nstage, ((j + 1) / kStages) & 1);
     mbar_wait(bar_v + 8 * stage, (j / kStages) & 1);
     wgmma_fence();
-    issue_qk<DH>(s, sq, skv + 2 * nstage * KT::kBytes);
-    issue_pv<DH>(acc, pa, v_tile);
+    issue_qk<DP>(s, sq, skv + 2 * nstage * KT::kBytes);
+    issue_pv<DP>(acc, pa, v_tile);
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
     softmax_tile(s, m, l, corr, k_first + (j + 1) * kKeys, row_a,
                  col_q, args);
@@ -624,13 +638,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
       if (j + 1 + kStages < n_tiles) load_k(j + 1 + kStages);
       if (j + kStages < n_tiles) load_v(j + kStages);
     }
-    rescale_and_pack<DH>(acc, corr, s, pa);
+    rescale_and_pack<DP>(acc, corr, s, pa);
   }
   if (n_tiles > 0) {  // the last tile: P V alone
     const int j = n_tiles - 1;
     mbar_wait(bar_v + 8 * (j % kStages), (j / kStages) & 1);
     wgmma_fence();
-    issue_pv<DH>(acc, pa, skv + (2 * (j % kStages) + 1) * KT::kBytes);
+    issue_pv<DP>(acc, pa, skv + (2 * (j % kStages) + 1) * KT::kBytes);
     wgmma_wait_all();
   }
 
@@ -644,7 +658,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
     if (qpos >= Sq) continue;
     __nv_bfloat16* orow = o + b * so.b + qpos * so.s + h * so.h;
 #pragma unroll
-    for (int c = 0; c < DH / 8; ++c)
+    for (int c = 0; c < DH / 8; ++c)  // the columns past DH are not stored
       *reinterpret_cast<uint32_t*>(orow + 8 * c + col_q) =
           pack_bf16(acc[4 * c + 2 * r] * inv, acc[4 * c + 2 * r + 1] * inv);
   }
@@ -675,11 +689,12 @@ EncodeTiled encode_fn() {
 }
 
 // 4-D map over (dh, head, s, b) of a bf16 tensor, box (slab cols, 1, ROWS,
-// 1); out-of-range rows read as zeros.
+// 1); out-of-range rows, and the padded columns past DH, read as zeros.
 template <int DH, int ROWS>
 bool make_map(CUtensorMap* map, const void* base, int heads, int S, int B,
               Strides st) {
-  using G = Tile<DH, ROWS>;
+  constexpr int DP = kPadded<DH>;
+  using G = Tile<DP, ROWS>;
   const EncodeTiled encode = encode_fn();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)heads,
@@ -688,8 +703,8 @@ bool make_map(CUtensorMap* map, const void* base, int heads, int S, int B,
                                  (cuuint64_t)st.b * 2};
   const cuuint32_t box[4] = {(cuuint32_t)G::kCols, 1, ROWS, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = DH >= 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : DH == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+  const CUtensorMapSwizzle swz = DP >= 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : DP == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                             : CU_TENSOR_MAP_SWIZZLE_32B;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, elem,
@@ -709,8 +724,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
       !make_map<DH, kKeys>(&mk, k, KV, Sk, B, sk) ||
       !make_map<DH, kKeys>(&mv, v, KV, Sk, B, sv))
     return cudaErrorInvalidValue;
-  const size_t smem = Tile<DH, kRows>::kBytes +
-                      2 * kStages * Tile<DH, kKeys>::kBytes + 1024 + 64;
+  constexpr int DP = kPadded<DH>;
+  const size_t smem = Tile<DP, kRows>::kBytes +
+                      2 * kStages * Tile<DP, kKeys>::kBytes + 1024 + 64;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -737,8 +753,14 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch_bf16<64>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
                              causal, window, cap, scale, kv_len, st);
+    case 120:
+      return launch_bf16<120>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
+                              causal, window, cap, scale, kv_len, st);
     case 128:
       return launch_bf16<128>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
+                              causal, window, cap, scale, kv_len, st);
+    case 160:
+      return launch_bf16<160>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
                               causal, window, cap, scale, kv_len, st);
     case 256:
       return launch_bf16<256>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
@@ -752,8 +774,8 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // q, o: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); `strides` holds (b, s, h) in
 // elements for q, k, v, o in that order, the head dimension contiguous.
-// dtype: 0 = float32 (Dh <= 256), 1 = bfloat16 (Dh in {16, 32, 64, 128,
-// 256}). kv_len < 0 means "no kv_len mask". Returns a cudaError_t (0 on
+// dtype: 0 = float32 (Dh <= 256), 1 = bfloat16 (Dh in {16, 32, 64, 120, 128,
+// 160, 256}). kv_len < 0 means "no kv_len mask". Returns a cudaError_t (0 on
 // success); the caller raises on anything else.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* o,

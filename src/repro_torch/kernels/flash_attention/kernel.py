@@ -26,7 +26,8 @@ from repro_torch import kernels
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BF16_HEAD_DIMS = (16, 32, 64, 128, 256)
+# 120 and 160 run at the padded widths 128 and 192 inside the kernel
+BF16_HEAD_DIMS = (16, 32, 64, 120, 128, 160, 256)
 
 launches = 0
 

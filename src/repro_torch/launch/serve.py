@@ -16,8 +16,19 @@ schedule plus ``--device`` (default ``cuda``)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
         --batch 4 --prompt-len 500 --gen 32
 
-``--arch`` is one of the port's registered configs: ``starcoder2-3b``,
-``recurrentgemma-9b``, ``rwkv6-7b``. Prefill runs full-sequence attention
+``--arch`` is one of the port's registered configs
+(``configs.base.list_configs``): the dense decoders ``starcoder2-3b``,
+``gemma2-27b``, ``h2o-danube-3-4b``, ``stablelm-12b``, the hybrids
+``recurrentgemma-9b`` and ``rwkv6-7b``, and the MoE decoders
+``granite-moe-1b-a400m`` and ``llama4-scout-17b-a16e``; ``--n-layers``
+cuts the depth, keeping the widths, as ``launch/train.py``'s does
+(Llama-4-Scout's 48 layers do not fit one card; 4, one iRoPE cycle, do)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama4-scout-17b-a16e --n-layers 4 --batch 4 \
+        --prompt-len 500 --gen 32
+
+Prefill runs full-sequence attention
 through the hand-written flash kernel and the RG-LRU and RWKV-6
 recurrences through the lru_scan and wkv6 kernels (wkv6 also runs each
 decode step): ``use_pallas_attention``, the port's one kernel switch, is
@@ -148,6 +159,8 @@ def parse_args(argv=None):
                     help="with --spec: override the spec's serve.max_batch")
     ap.add_argument("--arch", default="starcoder2-3b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth to N layers (widths unchanged)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=16)
@@ -166,6 +179,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     cfg = dataclasses.replace(cfg, use_pallas_attention=True)
     B, S, G = args.batch, args.prompt_len, args.gen
 

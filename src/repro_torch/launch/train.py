@@ -136,6 +136,7 @@ def main(argv=None) -> None:
             print(f"step {i:4d} loss={m['loss']:.4f} "
                   f"pg={m['pg']:.4f} "
                   f"ent={m['entropy']:.4f} "
+                  f"aux={m['aux']:.6g} "
                   f"({(time.time() - t0) / done:.3f}s/step)",
                   flush=True)
 

@@ -132,7 +132,10 @@ def _load_builtins() -> None:
         if reduced:
             cfg = cfg.reduced()
         if overrides:
-            cfg = dataclasses.replace(cfg, **overrides)
+            # JSON round-trips deliver tuple fields (the cycles) as lists
+            cfg = dataclasses.replace(cfg, **{
+                k: tuple(v) if isinstance(v, list) else v
+                for k, v in overrides.items()})
         backbone.check_supported(cfg)
 
         def init(key):

@@ -9,7 +9,7 @@ the plain version. Training differentiates the same call: the kernel's
 backward is the VJP of its plain version (``ops.FlashAttention``). The
 reference's jnp ``blocked_attention``, its training default with a
 custom flash backward, computes the same function and is not ported
-(ROADMAP queue 1, item 7b).
+(ROADMAP queue 1, item 7b, with the encoder-decoder and VLM inputs).
 
 Decode (one query against the cache) is plain PyTorch, as in the
 reference, where it is no kernel either.

@@ -2,7 +2,8 @@
 value heads.
 
 Counterpart of ``repro/models/backbone.py`` for decoders of ATTN_FULL,
-ATTN_LOCAL, RGLRU and RWKV mixers with the dense FFN. The reference
+ATTN_LOCAL, RGLRU and RWKV mixers with the dense or the MoE FFN
+(``models/moe.py``, ``moe_dropless.py``). The reference
 stacks each mixer/ffn cycle's params under ``blocks/l<i>``, scans over
 them and runs the left-over layers (``rem``) unrolled; here each layer is
 one ``DecoderLayer`` in an ``nn.ModuleList`` (``bridge.py`` unstacks), so
@@ -14,8 +15,10 @@ Entry points: ``forward`` (full sequence, optionally filling caches, or
 for training with ``remat=True``: one ``torch.utils.checkpoint`` per
 layer, the counterpart of the reference's ``jax.checkpoint`` per block),
 ``prefill`` and ``decode_step``; ``init_params`` builds the model on the
-device from a ``torch.Generator``. ``Backbone.forward`` is ``forward``'s
-hidden states, so ``torch.func.functional_call`` runs the model on a flat
+device from a ``torch.Generator``. ``forward`` returns the MoE layers'
+load-balance loss summed over layers as its third value (0 with a cache,
+as in the reference). ``Backbone.forward`` is ``forward``'s hidden states
+and that loss, so ``torch.func.functional_call`` runs the model on a flat
 ``{name: tensor}`` dict (the learner's params); ``from_params`` wraps
 such a dict in a module without copying; ``param_count`` counts a
 config's parameters without allocating them (the counterpart of
@@ -29,28 +32,24 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from repro_torch.configs.base import (ATTN_FULL, ATTN_LOCAL, FFN_DENSE,
-                                      RGLRU, RWKV, ModelConfig)
-from repro_torch.models import attention, layers, rglru, rwkv6
+from repro_torch.configs.base import (ATTN_LOCAL, FFN_DENSE, FFN_MOE, RGLRU,
+                                      RWKV, ModelConfig)
+from repro_torch.models import attention, layers, moe, rglru, rwkv6
 
-_NOT_PORTED = ("not ported yet: the port's backbone is the decoder of "
-               "ATTN_FULL/ATTN_LOCAL/RGLRU/RWKV mixers with the dense FFN; "
-               "MoE, encoder-decoder and VLM inputs wait for later slices, "
-               "ROADMAP queue 1, item 7b")
+_NOT_PORTED = ("not ported yet: the encoder-decoder (Whisper's encoder "
+               "and cross-attention) and the VLM inputs (Qwen2-VL's M-RoPE "
+               "and vision prefix) wait for a later slice, ROADMAP queue "
+               "1, item 7b")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    for mixer, ffn in cfg.layer_kinds:
-        if (mixer not in (ATTN_FULL, ATTN_LOCAL, RGLRU, RWKV)
-                or ffn != FFN_DENSE):
-            raise NotImplementedError(f"{cfg.name}: ({mixer}, {ffn}) "
-                                      + _NOT_PORTED)
     if cfg.is_encoder_decoder or cfg.vision_prefix or cfg.mrope:
         raise NotImplementedError(f"{cfg.name}: " + _NOT_PORTED)
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, mixer_kind: str, device=None):
+    def __init__(self, cfg: ModelConfig, mixer_kind: str,
+                 ffn_kind: str = FFN_DENSE, device=None):
         super().__init__()
         self.mixer_kind = mixer_kind
         self.norm1 = layers.Norm(cfg, cfg.d_model, device=device)
@@ -61,10 +60,13 @@ class DecoderLayer(nn.Module):
         else:
             self.mixer = attention.Attention(cfg, device=device)
         self.norm2 = layers.Norm(cfg, cfg.d_model, device=device)
-        self.ffn = layers.MLP(cfg, device=device)
+        self.ffn = (moe.MoE(cfg, device=device) if ffn_kind == FFN_MOE
+                    else layers.MLP(cfg, device=device))
 
     def forward(self, x, cfg: ModelConfig, *, positions=None, cache=None,
                 cache_pos=None):
+        """(x, cache, aux): aux is the MoE's load-balance loss, None for
+        the dense FFN."""
         h = self.norm1(x)
         if self.mixer_kind == RGLRU:
             out, cache = rglru.apply_rglru_block(self.mixer, h, cfg, cache)
@@ -75,8 +77,12 @@ class DecoderLayer(nn.Module):
                                     positions=positions, cache=cache,
                                     cache_pos=cache_pos)
         x = x + out
-        x = x + self.ffn(self.norm2(x))
-        return x, cache
+        h = self.norm2(x)
+        if isinstance(self.ffn, moe.MoE):
+            out, aux = self.ffn(h, cfg)
+        else:
+            out, aux = self.ffn(h), None
+        return x + out, cache, aux
 
 
 class Backbone(nn.Module):
@@ -87,8 +93,8 @@ class Backbone(nn.Module):
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
                                               dtype=dt, device=device))
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, mixer, device=device)
-            for mixer, _ in cfg.layer_kinds)
+            DecoderLayer(cfg, mixer, ffn, device=device)
+            for mixer, ffn in cfg.layer_kinds)
         self.final_norm = layers.Norm(cfg, cfg.d_model, device=device)
         self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size,
                                                 dtype=dt, device=device))
@@ -98,9 +104,11 @@ class Backbone(nn.Module):
 
     def forward(self, cfg: ModelConfig, tokens, positions=None,
                 remat: bool = False):
-        """The final hidden states (B, S, D) of a full sequence."""
-        return forward(self, cfg, tokens, positions=positions,
-                       remat=remat)[0]
+        """(the final hidden states (B, S, D) of a full sequence, the
+        summed load-balance loss)."""
+        hidden, _, aux = forward(self, cfg, tokens, positions=positions,
+                                 remat=remat)
+        return hidden, aux
 
 
 def from_params(cfg: ModelConfig, params: dict) -> Backbone:
@@ -156,13 +164,15 @@ def _remat_layer(layer: DecoderLayer, x, cfg: ModelConfig, positions):
     """One layer under ``torch.utils.checkpoint``: the backward runs it
     again instead of keeping its intermediates. Its weights go in as
     arguments, so the recompute sees them even when the caller swapped
-    them in with ``functional_call`` and has swapped them out since."""
+    them in with ``functional_call`` and has swapped them out since.
+    Returns (x, aux), as the reference's remat'd block carries aux out."""
     names, weights = zip(*layer.named_parameters())
 
     def run(x, *ws):
-        return torch.func.functional_call(
+        x, _, aux = torch.func.functional_call(
             layer, dict(zip(names, ws)), (x, cfg),
-            {"positions": positions})[0]
+            {"positions": positions})
+        return x, aux
 
     return torch.utils.checkpoint.checkpoint(run, x, *weights,
                                              use_reentrant=False)
@@ -171,8 +181,10 @@ def _remat_layer(layer: DecoderLayer, x, cfg: ModelConfig, positions):
 def forward(model: Backbone, cfg: ModelConfig, tokens, *, positions=None,
             cache=None, cache_pos=None, remat: bool = False):
     """Full sequence (cache None), prefill (cache given, S > 1) or decode
-    (cache given, S == 1, cache_pos given). Returns (hidden, cache).
-    ``remat`` (full sequence only): checkpoint every layer.
+    (cache given, S == 1, cache_pos given). Returns (hidden, cache, aux):
+    aux the MoE layers' load-balance loss summed over layers, fp32, and 0
+    when a cache is given, as in the reference. ``remat`` (full sequence
+    only): checkpoint every layer.
 
     Each layer's returned cache replaces its entry in the caller's list:
     attention writes its k/v in place and returns the same dict, the
@@ -182,16 +194,19 @@ def forward(model: Backbone, cfg: ModelConfig, tokens, *, positions=None,
                          "cache)")
     x = layers.apply_embed(model.embed, tokens) * math.sqrt(cfg.d_model)
     x = x.to(layers.cdtype(cfg))
+    aux = torch.zeros((), device=x.device)
     for i, layer in enumerate(model.layers):
         if remat:
-            x = _remat_layer(layer, x, cfg, positions)
-            continue
-        x, new = layer(x, cfg, positions=positions,
-                       cache=None if cache is None else cache[i],
-                       cache_pos=cache_pos)
-        if cache is not None:
-            cache[i] = new
-    return model.final_norm(x), cache
+            x, a = _remat_layer(layer, x, cfg, positions)
+        else:
+            x, new, a = layer(x, cfg, positions=positions,
+                              cache=None if cache is None else cache[i],
+                              cache_pos=cache_pos)
+            if cache is not None:
+                cache[i] = new
+        if a is not None and cache is None:
+            aux = aux + a
+    return model.final_norm(x), cache, aux
 
 
 def logits_and_value(model: Backbone, cfg: ModelConfig, hidden):
@@ -208,7 +223,7 @@ def prefill(model: Backbone, cfg: ModelConfig, tokens, max_len: int):
     (logits_last (B, V), value_last (B,), cache)."""
     B, _ = tokens.shape
     cache = init_decode_cache(cfg, B, max_len, device=tokens.device)
-    hidden, cache = forward(model, cfg, tokens, cache=cache)
+    hidden, cache, _ = forward(model, cfg, tokens, cache=cache)
     logits, value = logits_and_value(model, cfg, hidden[:, -1:])
     return logits[:, 0], value[:, 0], cache
 
@@ -219,7 +234,7 @@ def decode_step(model: Backbone, cfg: ModelConfig, token, cache, pos: int):
     B = token.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.long,
                            device=token.device)
-    hidden, cache = forward(model, cfg, token, positions=positions,
-                            cache=cache, cache_pos=pos)
+    hidden, cache, _ = forward(model, cfg, token, positions=positions,
+                               cache=cache, cache_pos=pos)
     logits, value = logits_and_value(model, cfg, hidden)
     return logits[:, 0], value[:, 0], cache

@@ -74,19 +74,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------- MLP
 class MLP(nn.Module):
     """Dense FFN: ``w_in (d, d_ff)``, ``w_out (d_ff, d)`` and, for
-    swiglu, ``w_gate``. GeLU is the tanh approximation, which is what
-    ``jax.nn.gelu`` computes by default (``layers.py:160``)."""
+    swiglu, ``w_gate``; ``d_ff`` overrides the config's (the MoE's shared
+    expert, ``init_mlp(key, cfg, d_ff)``). GeLU is the tanh
+    approximation, which is what ``jax.nn.gelu`` computes by default
+    (``layers.py:160``)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, d_ff: int | None = None,
+                 device=None):
         super().__init__()
         dt = cdtype(cfg)
+        d_ff = d_ff or cfg.d_ff
         self.kind = cfg.mlp_kind
-        self.w_in = nn.Parameter(torch.empty(cfg.d_model, cfg.d_ff,
+        self.w_in = nn.Parameter(torch.empty(cfg.d_model, d_ff,
                                              dtype=dt, device=device))
-        self.w_out = nn.Parameter(torch.empty(cfg.d_ff, cfg.d_model,
+        self.w_out = nn.Parameter(torch.empty(d_ff, cfg.d_model,
                                               dtype=dt, device=device))
         if self.kind == "swiglu":
-            self.w_gate = nn.Parameter(torch.empty(cfg.d_model, cfg.d_ff,
+            self.w_gate = nn.Parameter(torch.empty(cfg.d_model, d_ff,
                                                    dtype=dt, device=device))
 
     def init_weights(self, generator: torch.Generator) -> None:

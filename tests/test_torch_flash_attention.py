@@ -152,9 +152,9 @@ def test_kernel_route_passes_model_layout_views_unpadded(monkeypatch):
 
 @pytest.mark.parametrize("dh", [8, 48, 96])
 def test_kernel_refuses_bf16_head_dims_it_has_no_form_for(dh, monkeypatch):
-    """The tensor-core kernel takes bf16 Dh in {16, 32, 64, 128, 256}; any
-    other bf16 Dh raises before the library is touched (the device check
-    is stubbed so the test runs on the CPU)."""
+    """The tensor-core kernel takes bf16 Dh in {16, 32, 64, 120, 128, 160,
+    256}; any other bf16 Dh raises before the library is touched (the
+    device check is stubbed so the test runs on the CPU)."""
     q = torch.zeros(1, 64, 2, dh, dtype=torch.bfloat16)
     k = torch.zeros(1, 64, 1, dh, dtype=torch.bfloat16)
 

@@ -150,3 +150,49 @@ def test_cpu_route_still_differentiates(op):
     out = out[0] if isinstance(out, tuple) else out
     out.square().sum().backward()
     assert all(a.grad is not None for a in args)
+
+
+@pytest.mark.parametrize("dh,takes", [(120, True), (160, True), (48, False),
+                                      (96, False), (200, False)])
+def test_bf16_route_head_dims(dh, takes, monkeypatch):
+    """The bf16 route hands Dh 120 and 160 (run at the padded widths 128
+    and 192 inside the kernel) to the library as they are, with the scale
+    of the true Dh and no padded copy; a Dh it has no form for raises
+    before the library is touched, with no fallback. The binding is a
+    stand-in that records the call (no card)."""
+    import contextlib
+    import types
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    calls = []
+
+    class Library:
+        def repro_flash_attention_fwd(self, *args):
+            calls.append(args)
+            return 0
+
+    class FakeDevice:
+        type = "cuda"
+
+    q = torch.zeros(2, 70, 4, dh, dtype=torch.bfloat16)
+    k = torch.zeros(2, 70, 2, dh, dtype=torch.bfloat16)
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda t: FakeDevice))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(fa_kernel, "library", Library)
+    monkeypatch.setattr(fa_kernel, "launches", 0)
+    if not takes:
+        with pytest.raises(ValueError, match="head dim"):
+            fa_kernel.flash_attention(q, k, k)
+        assert not calls and fa_kernel.launches == 0
+        return
+    out = fa_kernel.flash_attention(q, k, k, window=16, cap=30.0)
+    (args,) = calls
+    assert args[0] == q.data_ptr() and args[1] == args[2] == k.data_ptr()
+    # (B, H, KV, Sq, Sk, Dh), the scale and the dtype code (1: bf16)
+    assert args[5:11] == (2, 4, 2, 70, 70, dh)
+    assert args[14] == pytest.approx(dh ** -0.5) and args[16] == 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert fa_kernel.launches == 1

@@ -233,7 +233,7 @@ def test_prefill_step_and_policy_outputs_on_flat_params():
         assert torch.equal(x, y)
     logits, values, aux = learner.policy_outputs(flat, cfg,
                                                  {"tokens": tokens})
-    hidden, _ = backbone.forward(model, cfg, tokens)
+    hidden, _, _ = backbone.forward(model, cfg, tokens)
     for x, y in zip((logits, values),
                     backbone.logits_and_value(model, cfg, hidden)):
         assert torch.equal(x, y)

@@ -211,7 +211,7 @@ def test_decode_reads_the_state_prefill_wrote(arch):
     tokens = torch.randint(0, cfg.vocab_size, (B, 24),
                            generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
-        hidden, _ = backbone.forward(model, cfg, tokens)
+        hidden, _, _ = backbone.forward(model, cfg, tokens)
         full, _ = backbone.logits_and_value(model, cfg, hidden[:, -1:])
         _, _, cache = backbone.prefill(model, cfg, tokens[:, :-1], 24)
         state = cache[0]["h" if "h" in cache[0] else "state"]

@@ -150,7 +150,7 @@ def test_policy_registry():
     assert pol.apply is None and pol.config.n_layers == 2
     assert "layers.1.mixer.u" in pol.init(tdet.master_key(0))
     with pytest.raises(NotImplementedError, match="queue 1, item 7b"):
-        models.get_policy("backbone", te, reduced=True, ffn_cycle=["moe"])
+        models.get_policy("backbone", te, reduced=True, mrope=True)
     with pytest.raises(KeyError, match="registered"):
         models.get_policy("transformer", te)
     # the mlp flattens image observations
