@@ -16,7 +16,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    strided views in the model's layout (ragged S, window, soft-cap, every
    bf16 head dim, 120 and 160 among them, which the kernel runs at the
    padded widths 128 and 192; Dh 48 and 96 refused), at every serving
-   path's prefill shape, wkv6 also around its chunk length and with fast
+   path's prefill shape, at Sq != Sk (cross-attention, non-causal: one
+   query and ragged query and key tiles, Whisper-medium's 500 and 1 decoder
+   queries against its 1500 encoder frames, contiguous and as views of
+   fused projections) and at Whisper's encoder (non-causal S 1500, a
+   ragged last key tile) and Qwen2-VL's (64 / 8 heads, Dh 128) shapes,
+   wkv6 also around its chunk length and with fast
    decay
    (w down to 1e-4, and w = 0), and the chunked wkv6 against its plain
    chunked form; lru_scan bit for bit (``torch.equal``) on both of its
@@ -29,15 +34,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    local-attention layers), RWKV-6-7B (wkv6 in 32 layers, prefill and
    every decode step), Gemma-2-27B (flash in 46 layers), H2O-Danube3-4B
    (24, Dh 120), StableLM-2-12B (40, Dh 160), Granite-3.0-1B-a400m (24,
-   MoE of 32 experts, top-8) and Llama-4-Scout at ``--n-layers 4`` (4, MoE
+   MoE of 32 experts, top-8), Llama-4-Scout at ``--n-layers 4`` (4, MoE
    of 16 experts, top-1, a shared expert; its 48 layers do not fit one
-   card). The kernel launch counts are zeroed just before each run and
+   card), Whisper-medium (flash in its 24 encoder layers and its 24
+   decoder layers' self- and cross-attention: 72 a prefill; the launcher
+   runs the reference's stub inputs, zero audio at prefill and a zero
+   ``enc_out`` at decode, and every comparison seeded audio frames with
+   the encoder's output at each decode step) and Qwen2-VL-72B at
+   ``--n-layers 8`` (19.0 GB; M-RoPE, seeded patch embeddings over the
+   first 256 positions in the comparisons). The kernel launch counts are
+   zeroed just before each run and
    read just after; then per prefill and per decode step. The prefill
    logits are held against the same weights run with the plain versions
    (for RWKV-6 beside the distance a reordering of the plain wkv6's sum
    alone makes), a sampled run is repeated to show its tokens do not
    change, the full-width model in fp32 is held against its plain-version
-   run (Gemma-2 at 2 layers: 46 take 82.4 GB in fp32), and a reduced fp32
+   run (Gemma-2 at 2 layers: 46 take 82.4 GB in fp32; Qwen2-VL at 2,
+   whose 8 take 38.0 GB, to keep the phase short), and a reduced fp32
    config is held against the CPU run of the same weights. For the MoE
    models each of these also compares every MoE layer's routing (printed;
    equal required card vs CPU) and checks that a group's padding rows
@@ -82,13 +95,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    CPU (TF32 off): streams exact, params within 1e-5 (the atari_a2c CNN:
    its first learner pass's gradients within 1e-4 relative, its params'
    distance printed); the device-backend gridmaze at n_envs 1024, env
-   steps/s over 3 runs after a warm-up. The launch counts of the port's
-   kernels over all of that stay 0 (the kernels' backwards are held in
-   phase 10 (a));
+   steps/s over 3 runs after a warm-up; ``python -m repro_torch.launch.run
+   --spec examples/specs/football_ppo.json --intervals 10`` (the
+   mini-football drill, ppo, the threaded host runtime) and its first 4
+   intervals card against CPU: streams exact, params within 1e-5. The
+   launch counts of the port's kernels over all of that stay 0 (the
+   kernels' backwards are held in phase 10 (a));
 8. the threaded host runtime and the baselines (``phase_host``): (a)
    ``python -m repro_torch.launch.run --spec
-   examples/specs/quickstart.json --runtime host`` as typed, then
-   checkpointed and stopped at 10 and resumed to 20, whose last
+   examples/specs/quickstart.json --runtime host`` checkpointed and
+   stopped at 10 and resumed to 20 as typed, whose last
    checkpoint equals the ``mesh`` runtime's ``Session.fit(20)`` leaf for
    leaf with the same episode-return stream; (b) host == mesh on the card
    (``torch.equal``) at K 1 and 2, with 1 and 4 actors, with and without
@@ -171,7 +187,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    layer among them), 3 stream-runtime steps on the card and on the CPU
    from the same weights: losses within 1e-4, SGD's params within 1e-5
    of each leaf's largest entry, the MoE routing equal, and a rerun on
-   the card bit for bit.
+   the card bit for bit; (f) Whisper-medium at full width and depth, 3
+   steps of ``make_train_step`` (Adam, bf16, 4 x 512 tokens and 4 x 1500
+   audio frames; 120 flash launches a step), and Qwen2-VL-72B with Adam at
+   2 layers (1 where 2 run out of memory; patch embeddings and three
+   M-RoPE streams): ms per step, tokens/s, peak memory beside the state;
+   first steps kernels vs plain of Whisper (24 layers) and Qwen2-VL (2)
+   in (c)'s comparison, fp32 leaves at 1e-4; (g) ``blocked_attention``,
+   the plain-PyTorch training route with its tiled backward, against
+   ``attend_plain`` on the card (forward and gradients, time, memory),
+   and one StarCoder2-3B first step at full width and depth through each
+   route with its peak memory; (h) ``launch.train --arch h2o-danube-3-4b
+   --steps 3`` with Adam at full depth (its peak, or the out-of-memory);
+   (i) ``examples/torch_llm_policy_hts.py --intervals 4``.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Needs CUDA; imports nothing of jax.
@@ -227,6 +255,14 @@ FLASH_CASES = [
     (2, 128, 4, 2, 120, True, 0, 0.0, 64, 64, torch.bfloat16),
     (1, 130, 4, 1, 160, True, 0, 0.0, 128, 128, torch.bfloat16),
     (2, 96, 2, 2, 160, False, 0, 0.0, 32, 32, torch.bfloat16),
+    # Sq != Sk (a twelfth element, Sk): cross-attention, non-causal, one
+    # query and a ragged tile of queries against ragged key tiles, in both
+    # dtypes; Whisper's one decode query against its 1500 encoder keys
+    (2, 70, 4, 4, 64, False, 0, 0.0, 64, 64, torch.float32, 200),
+    (2, 1, 4, 2, 64, False, 0, 0.0, 64, 64, torch.float32, 150),
+    (2, 70, 4, 4, 64, False, 0, 0.0, 64, 64, torch.bfloat16, 200),
+    (4, 1, 16, 16, 64, False, 0, 0.0, 128, 128, torch.bfloat16, 1500),
+    (4, 1, 16, 16, 64, False, 0, 0.0, 128, 128, torch.float32, 1500),
 ]
 # the model's layout as strided views (q, k, v slices of one fused
 # (B, S, H + 2 KV, Dh) tensor), unpadded: ragged S = 500 and 80, window < S,
@@ -258,8 +294,28 @@ STABLELM_ATTN = (4, 500, 32, 8, 160, True, 0, 0.0, 128, 128, torch.bfloat16)
 GEMMA_ATTN = (4, 500, 32, 16, 128, True, 4096, 50.0, 128, 128, torch.bfloat16)
 GRANITE_ATTN = (4, 500, 16, 8, 64, True, 0, 0.0, 128, 128, torch.bfloat16)
 LLAMA4_ATTN = (4, 500, 40, 8, 128, True, 0, 0.0, 128, 128, torch.bfloat16)
+# the shapes of the encoder-decoder and VLM slice. A twelfth element is the
+# key length Sk where it differs from the query length: Whisper-medium's
+# encoder (non-causal, S 1500: 1500 = 11 * 128 + 92, a ragged last key
+# tile), its cross-attention prefill (the decoder's 500 queries against
+# the encoder's 1500 keys, non-causal), its decoder self-attention (MHA
+# 16 / 16, Dh 64) and Qwen2-VL-72B's (64 / 8 heads, Dh 128)
+WHISPER_ENC_ATTN = (4, 1500, 16, 16, 64, False, 0, 0.0, 128, 128,
+                    torch.bfloat16)
+WHISPER_CROSS_ATTN = (4, 500, 16, 16, 64, False, 0, 0.0, 128, 128,
+                      torch.bfloat16, 1500)
+WHISPER_SELF_ATTN = (4, 500, 16, 16, 64, True, 0, 0.0, 128, 128,
+                     torch.bfloat16)
+QWEN_ATTN = (4, 500, 64, 8, 128, True, 0, 0.0, 128, 128, torch.bfloat16)
 PREFILL_ATTN = [MAIN, RG_ATTN, DANUBE_ATTN, STABLELM_ATTN, GEMMA_ATTN,
-                GRANITE_ATTN, LLAMA4_ATTN]
+                GRANITE_ATTN, LLAMA4_ATTN, WHISPER_ENC_ATTN,
+                WHISPER_CROSS_ATTN, WHISPER_SELF_ATTN, QWEN_ATTN]
+# the slice's shapes as views too: q a slice of a wider projection, k and
+# v of one fused (B, Sk, 2 KV, Dh) encoder projection; and the cross
+# shape in fp32
+FLASH_STRIDED += [WHISPER_ENC_ATTN, WHISPER_CROSS_ATTN, QWEN_ATTN,
+                  (4, 500, 16, 16, 64, False, 0, 0.0, 128, 128,
+                   torch.float32, 1500)]
 # bf16 head dims the tensor-core kernel has no form for: refused, no fallback
 FLASH_REFUSED = (48, 96)
 
@@ -362,13 +418,28 @@ SERVE_PATHS = {
                              {"flash_attention": 24}, {}),
     "llama4-scout-17b-a16e": ({"flash_attention": 4},
                               {"flash_attention": 4}, {}),
+    # the encoder's 24 layers, the decoder's 24 self- and 24
+    # cross-attention layers, once per prefill; decode attends to the
+    # cache and to the encoder states without the kernel
+    "whisper-medium": ({"flash_attention": 72}, {"flash_attention": 72},
+                       {}),
+    "qwen2-vl-72b": ({"flash_attention": 8}, {"flash_attention": 8}, {}),
 }
 # the launcher's extra flags per arch: Llama-4-Scout's 48 layers (215.6 GB
-# in bf16) do not fit one card; 4 layers, one iRoPE cycle, do
-SERVE_ARGS = {"llama4-scout-17b-a16e": ("--n-layers", "4")}
+# in bf16) do not fit one card; 4 layers, one iRoPE cycle, do. Qwen2-VL's
+# 80 layers take 145.4 GB; 8 take 19.0 GB
+SERVE_ARGS = {"llama4-scout-17b-a16e": ("--n-layers", "4"),
+              "qwen2-vl-72b": ("--n-layers", "8")}
 # the fp32 full-width check's depth where the full depth does not fit:
-# Gemma-2's 46 layers take 82.4 GB in fp32; 2, one local/global cycle
-FP32_LAYERS = {"gemma2-27b": 2}
+# Gemma-2's 46 layers take 82.4 GB in fp32; 2, one local/global cycle.
+# Qwen2-VL at 2 layers (17.0 GB), where its served 8 would take 38.0 GB:
+# the check's time, not the card, sets that depth
+FP32_LAYERS = {"gemma2-27b": 2, "qwen2-vl-72b": 2}
+# the modality inputs of the comparisons (the launcher as typed runs the
+# reference's stub: zero audio and patches, a zero enc_out at decode):
+# seeded N(0, 1) audio frames and patch embeddings, the encoder's output
+# of the audio at every decode step
+MODAL_SEED = 5
 
 
 # the training phase: the goldens' configuration (tests/test_goldens.py)
@@ -408,6 +479,11 @@ GRIDMAZE_CNNS = {
                                                 "hidden": 128}},
 }
 GRIDMAZE_SCALE = dict(alpha=8, n_envs=1024, intervals=10)
+# the football spec's launcher run (10 of its 40 intervals: the threaded
+# host runtime with the spec's step-time model takes 44.6 s for 40 on an
+# H100) and its intervals held card vs CPU
+FOOTBALL_LAUNCH_INTERVALS = 10
+FOOTBALL_INTERVALS = 4
 
 # the host runtime and the baselines (phase_host): intervals of the
 # host == mesh cells; the football spec's step-time model (shape 1, rate
@@ -466,6 +542,10 @@ TRAIN_FLASH = [
     (2, 80, 4, 2, 120, True, 32, 30.0, 128, 128, torch.bfloat16),
     (1, 96, 4, 1, 160, True, 0, 0.0, 128, 128, torch.bfloat16),
     MAIN_TRAIN, RG_TRAIN, GRANITE_TRAIN,
+    # Whisper-medium's training shapes: the encoder's 1500 frames and the
+    # cross-attention of 512 decoder positions against them (non-causal)
+    (4, 1500, 16, 16, 64, False, 0, 0.0, 128, 128, torch.bfloat16),
+    (4, 512, 16, 16, 64, False, 0, 0.0, 128, 128, torch.bfloat16, 1500),
 ]
 LRU_TRAIN = (4, 512, 4096, torch.float32)
 TRAIN_LRU = [((2, 32, 8, torch.float32), True),
@@ -515,14 +595,17 @@ LLM_GRAD_REL_L2 = {"bfloat16": {"recurrentgemma-9b": 5e-2,
                                "rwkv6-7b": 1e-3, "gemma2-27b": 1e-3,
                                "stablelm-12b": 1e-3,
                                "h2o-danube-3-4b": 1e-3,
-                               "granite-moe-1b-a400m": 1e-3}}
+                               "granite-moe-1b-a400m": 1e-3,
+                               "whisper-medium": 1e-4,
+                               "qwen2-vl-72b": 1e-4}}
 # (c'): the decoders of the MoE slice at full width, depth cut: arch ->
 # n_layers. Gemma-2 and StableLM-2 one cycle; H2O-Danube3 at its full 24
 # (fp32 params and two gradient trees: 47.5 GB); Granite-3.0-1B-a400m at
 # its full 24, its fp32 leaves bounded where its routing agrees (every
 # row on the same experts, the same top-1)
 LLM_FIRST_STEP = {"gemma2-27b": 2, "stablelm-12b": 2, "h2o-danube-3-4b": 24,
-                  "granite-moe-1b-a400m": 24}
+                  "granite-moe-1b-a400m": 24, "whisper-medium": 24,
+                  "qwen2-vl-72b": 2}
 # (d): StarCoder2-3B at full width with its depth cut for the resume
 LLM_RESUME_LAYERS = 1
 # (e): reduced fp32 configs, card vs CPU over 3 steps: label -> (arch,
@@ -543,6 +626,36 @@ LLM_CARD_CPU = {
 }
 CARD_CPU_LOSS_TOL = 1e-4
 CARD_CPU_PARAMS_TOL = 1e-5
+# (f): the encoder-decoder and the VLM. Whisper-medium at full width and
+# depth, LLM_STEPS steps of ``make_train_step`` with Adam in bf16 on
+# LLM_BATCH x LLM_SEQ tokens and LLM_BATCH x 1500 audio frames; its flash
+# launches per step: the encoder's 24 layers once (the reference does not
+# checkpoint its encoder) and the decoder's 24 self- and 24
+# cross-attention layers in the forward and again in each checkpointed
+# layer's recompute. Qwen2-VL-72B at full width with Adam at
+# QWEN_TRAIN_LAYERS layers (4.25 B params, 59.5 GB of state), one layer
+# if that runs out of memory; 2 flash launches a layer a step
+WHISPER_TRAIN_FLASH = 24 + 2 * (24 + 24)
+QWEN_TRAIN_LAYERS = 2
+# (g): blocked_attention (the plain-PyTorch training route with its tiled
+# backward) against attend_plain on the card, forward and gradients, at
+# StarCoder2-3B's and Whisper-medium's training shapes in bf16 and at a
+# ragged Sq != Sk in fp32; then one StarCoder2-3B first step at full width
+# and depth through each route, with its peak memory
+BLOCKED_CASES = [MAIN_TRAIN,
+                 (4, 1500, 16, 16, 64, False, 0, 0.0, 128, 128,
+                  torch.bfloat16),
+                 (4, 512, 16, 16, 64, False, 0, 0.0, 128, 128,
+                  torch.bfloat16, 1500),
+                 (2, 300, 8, 2, 64, True, 100, 30.0, 128, 128,
+                  torch.float32),
+                 (2, 200, 4, 4, 64, False, 0, 0.0, 128, 128, torch.float32,
+                  700)]
+# (h): H2O-Danube3-4B through ``launch.train`` with Adam at full depth
+# (55.5 GB of state by the reckoning): its peak, or the out-of-memory
+DANUBE_ADAM = "h2o-danube-3-4b"
+# (i): ``examples/torch_llm_policy_hts.py`` as typed, for a few intervals
+EXAMPLE_INTERVALS = 4
 
 
 def check(cond: bool, what: str) -> None:
@@ -710,17 +823,31 @@ def stream_times(label: str, prof, wall_us: float) -> dict:
 
 
 # ------------------------------------------------------------ inputs
+def key_len(case) -> int:
+    """A flash case's key length: its twelfth element where it has one,
+    else its query length."""
+    return case[11] if len(case) > 11 else case[1]
+
+
 def flash_inputs(case, gen, fused: bool = False):
     """q, k, v ~ N(0, 1) in the model's layout; ``fused``: as strided
     views into one (B, S, H + 2 KV, Dh) tensor, as a fused projection
-    would give them."""
-    B, S, H, KV, Dh, *_, dt = case
-    if fused:
+    would give them (where Sk != Sq: q a view of a (B, Sq, 2 H, Dh)
+    tensor, k and v of one (B, Sk, 2 KV, Dh) tensor)."""
+    B, S, H, KV, Dh = case[:5]
+    dt, Sk = case[10], key_len(case)
+    if fused and Sk == S:
         qkv = torch.randn((B, S, H + 2 * KV, Dh), generator=gen,
                           device="cuda").to(dt)
         return qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    if fused:
+        qq = torch.randn((B, S, 2 * H, Dh), generator=gen,
+                         device="cuda").to(dt)
+        kv = torch.randn((B, Sk, 2 * KV, Dh), generator=gen,
+                         device="cuda").to(dt)
+        return qq[:, :, :H], kv[:, :, :KV], kv[:, :, KV:]
     return [torch.randn(shape, generator=gen, device="cuda").to(dt)
-            for shape in ((B, S, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh))]
+            for shape in ((B, S, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dh))]
 
 
 def lru_inputs(case, gen):
@@ -828,7 +955,7 @@ def _flash_cases(gen) -> float:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     cases, main_err = [], 0.0
     for case in FLASH_CASES + PREFILL_ATTN:
-        B, S, H, KV, Dh, causal, window, cap, bq, bk, dt = case
+        B, S, H, KV, Dh, causal, window, cap, bq, bk, dt = case[:11]
         q, k, v = flash_inputs(case, gen)
         kw = dict(causal=causal, window=window, cap=cap, bq=bq, bk=bk)
         out = fa_ops.attend(q, k, v, use_kernel=True, **kw)
@@ -837,14 +964,15 @@ def _flash_cases(gen) -> float:
         err = (out.float() - ref.float()).abs().max().item()
         ok = (out.shape == ref.shape and out.dtype == dt
               and bool(torch.isfinite(out).all()) and err <= TOL[dt])
-        cases.append({"shape": [B, S, H, KV, Dh], "causal": causal,
-                      "window": window, "cap": cap, "dtype": str(dt),
-                      "max_abs_err": err, "tol": TOL[dt], "ok": ok})
+        cases.append({"shape": [B, S, H, KV, Dh], "sk": key_len(case),
+                      "causal": causal, "window": window, "cap": cap,
+                      "dtype": str(dt), "max_abs_err": err, "tol": TOL[dt],
+                      "ok": ok})
         check(ok, f"flash_attention {cases[-1]}")
         if case in PREFILL_ATTN:
             main_err = max(main_err, err)
     for case in FLASH_STRIDED:
-        B, S, H, KV, Dh, causal, window, cap, bq, bk, dt = case
+        B, S, H, KV, Dh, causal, window, cap, bq, bk, dt = case[:11]
         q, k, v = flash_inputs(case, gen, fused=True)
         check(not q.is_contiguous(), "strided case: q is a strided view")
         kw = dict(causal=causal, window=window, cap=cap)
@@ -854,11 +982,19 @@ def _flash_cases(gen) -> float:
         err = (out.float() - ref.float()).abs().max().item()
         ok = (out.shape == ref.shape and out.dtype == dt
               and bool(torch.isfinite(out).all()) and err <= TOL[dt])
-        cases.append({"shape": [B, S, H, KV, Dh], "causal": causal,
-                      "window": window, "cap": cap, "dtype": str(dt),
-                      "layout": "strided views of fused qkv",
+        cases.append({"shape": [B, S, H, KV, Dh], "sk": key_len(case),
+                      "causal": causal, "window": window, "cap": cap,
+                      "dtype": str(dt),
+                      "layout": "strided views of fused projections",
                       "max_abs_err": err, "tol": TOL[dt], "ok": ok})
         check(ok, f"flash_attention {cases[-1]}")
+    for c in cases:
+        if c["sk"] != c["shape"][1]:
+            print(f"flash_attention Sq {c['shape'][1]} != Sk {c['sk']} "
+                  f"(B, H, KV, Dh = {c['shape'][0]}, {c['shape'][2]}, "
+                  f"{c['shape'][3]}, {c['shape'][4]}; causal {c['causal']}; "
+                  f"{c['dtype']}{', strided' if 'layout' in c else ''}): "
+                  f"max abs err {c['max_abs_err']:.3e} (tol {c['tol']})")
     # a bf16 head dim the tensor-core kernel has no form for is refused
     for dh in FLASH_REFUSED:
         q, k, v = flash_inputs((1, 64, 2, 1, dh, True, 0, 0.0, 0, 0,
@@ -1080,10 +1216,59 @@ def routing_diff(a: list, b: list, k: int, what: str) -> dict:
             "padding_rows": pads}
 
 
+def modal_batch(cfg, batch: int, seq: int) -> dict:
+    """A training batch's modality inputs on the card: Whisper's audio
+    frames and Qwen2-VL's patch embeddings N(0, 1) from MODAL_SEED in the
+    model dtype; Qwen2-VL's M-RoPE positions as three different streams
+    (t = s, h = s // 16, w = s % 16: an image-grid layout); {} for a
+    text-only decoder."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(MODAL_SEED)
+    dt = getattr(torch, cfg.dtype)
+    if cfg.is_encoder_decoder:
+        out["audio_embeds"] = torch.randn(
+            (batch, cfg.enc_seq, cfg.d_model), generator=gen,
+            device="cuda").to(dt)
+    if cfg.vision_prefix:
+        out["patch_embeds"] = torch.randn(
+            (batch, cfg.vision_prefix, cfg.d_model), generator=gen,
+            device="cuda").to(dt)
+    if cfg.mrope:
+        pos = torch.arange(seq, device="cuda")
+        out["mrope_positions"] = torch.stack(
+            [pos, pos // 16, pos % 16])[:, None].expand(3, batch, seq)
+    return out
+
+
+def modal_inputs(cfg, batch: int, prompt_len: int) -> dict:
+    """A prefill's modality inputs for the comparisons: ``modal_batch``'s
+    audio frames and patch embeddings with the stub's M-RoPE positions
+    (``arange(S)`` in each stream, which the decode steps' S + i
+    continue)."""
+    from repro_torch.launch import serve
+    kw = modal_batch(cfg, batch, prompt_len)
+    if cfg.mrope:
+        kw["mrope_positions"] = serve.stub_inputs(
+            cfg, batch, prompt_len, "cuda")["mrope_positions"]
+    return kw
+
+
+def _decode_kw(model, cfg, kw: dict, batch: int, pos: int) -> dict:
+    """Decode step ``pos``'s extras for a prefill run on ``kw``: M-RoPE
+    positions at ``pos``, and the encoder's output of the audio."""
+    from repro_torch.launch import serve
+    from repro_torch.models import backbone
+    enc_out = (backbone.run_encoder(model, cfg, kw["audio_embeds"])
+               if "audio_embeds" in kw else None)
+    return serve.decode_extras(cfg, batch, pos, "cuda", enc_out)
+
+
 def phase_serve(arch: str) -> dict:
     """One main path at full width; returns its launch counts and
     steady-state times. For the MoE archs each comparison also compares
-    the routing of every MoE layer."""
+    the routing of every MoE layer. Whisper and Qwen2-VL run the
+    launcher on the reference's stub inputs and every comparison on
+    ``modal_inputs``."""
     from repro_torch.launch import serve
     from repro_torch.models import backbone
 
@@ -1111,12 +1296,16 @@ def phase_serve(arch: str) -> dict:
     check(res.tokens.shape == (B, GEN) and int(res.tokens.min()) >= 0
           and int(res.tokens.max()) < cfg.vocab_size, "generated tokens")
 
+    kw = modal_inputs(cfg, B, S)
     with torch.inference_mode():
+        step_kw = _decode_kw(res.model, cfg, kw, B, S)
         zero_launches()
-        _, _, cache = backbone.prefill(res.model, cfg, res.prompts, S + GEN)
+        _, _, cache = backbone.prefill(res.model, cfg, res.prompts, S + GEN,
+                                       **kw)
         per_prefill = read_launches()
         zero_launches()
-        backbone.decode_step(res.model, cfg, res.tokens[:, :1], cache, S)
+        backbone.decode_step(res.model, cfg, res.tokens[:, :1], cache, S,
+                             **step_kw)
         per_step = read_launches()
     print(f"{arch}: launches per prefill {per_prefill}, per decode step "
           f"{per_step}")
@@ -1125,17 +1314,22 @@ def phase_serve(arch: str) -> dict:
 
     routing = {}
     plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False)
-    with torch.inference_mode(), recording_routes() as r_kernel:
-        k_logits, _, _ = backbone.prefill(res.model, cfg, res.prompts,
-                                          S + GEN)
+    with torch.inference_mode():
+        stub_logits, _, _ = backbone.prefill(
+            res.model, cfg, res.prompts, S + GEN,
+            **serve.stub_inputs(cfg, B, S, "cuda"))
+        with recording_routes() as r_kernel:
+            k_logits, _, _ = backbone.prefill(res.model, cfg, res.prompts,
+                                              S + GEN, **kw)
     zero_launches()
     with torch.inference_mode(), recording_routes() as r_plain:
         plain_logits, _, _ = backbone.prefill(res.model, plain_cfg,
-                                              res.prompts, S + GEN)
+                                              res.prompts, S + GEN, **kw)
     _expect(read_launches(), {}, f"{arch} plain-version prefill")
-    check(torch.equal(k_logits, res.prefill_logits),
+    check(torch.equal(stub_logits, res.prefill_logits),
           f"{arch}: a second prefill gave other logits")
-    rel = ((res.prefill_logits - plain_logits).abs().max()
+    del stub_logits
+    rel = ((k_logits - plain_logits).abs().max()
            / plain_logits.abs().max()).item()
     print(f"{arch} prefill logits, kernels vs plain versions (same weights):"
           f" relative max error {rel:.3e} (bound 5e-2)")
@@ -1148,19 +1342,24 @@ def phase_serve(arch: str) -> dict:
         wkv_order_witness(res.model, plain_cfg, res.prompts, plain_logits)
 
     prefill_ms, tok_s = [], []
+    modal = {k: v for k, v in kw.items() if k != "mrope_positions"}
     for _ in range(SERVE_RUNS):
-        _, _, p_s, d_s = serve.generate(res.model, cfg, res.prompts, GEN)
+        _, _, p_s, d_s = serve.generate(res.model, cfg, res.prompts, GEN,
+                                        **modal)
         prefill_ms.append(p_s * 1e3)
         tok_s.append(B * (GEN - 1) / d_s)
     with torch.inference_mode():
         profile_window(f"{arch} prefill", lambda: backbone.prefill(
-            res.model, cfg, res.prompts, S + GEN))
-        _, _, cache = backbone.prefill(res.model, cfg, res.prompts, S + GEN)
+            res.model, cfg, res.prompts, S + GEN, **kw))
+        _, _, cache = backbone.prefill(res.model, cfg, res.prompts, S + GEN,
+                                       **kw)
         tok = res.tokens[:, :1]
+        steps = [_decode_kw(res.model, cfg, kw, B, S + i) for i in range(4)]
         profile_window(f"{arch} decode, 4 steps", lambda: [
-            backbone.decode_step(res.model, cfg, tok, cache, S + i)
+            backbone.decode_step(res.model, cfg, tok, cache, S + i,
+                                 **steps[i])
             for i in range(4)])
-    del res, plain_logits, k_logits, cache
+    del res, plain_logits, k_logits, cache, steps, step_kw
     _free_cuda()
 
     tokens = []
@@ -1175,15 +1374,16 @@ def phase_serve(arch: str) -> dict:
     fp32_cfg = dataclasses.replace(
         cfg, dtype="float32", n_layers=FP32_LAYERS.get(arch, cfg.n_layers))
     big, prompts = serve.build(fp32_cfg, BATCH, PROMPT, torch.device("cuda"))
+    kw = modal_inputs(fp32_cfg, BATCH, PROMPT)
     with torch.inference_mode():
         with recording_routes() as r_kernel:
             k_logits, _, _ = backbone.prefill(big, fp32_cfg, prompts,
-                                              S + GEN)
+                                              S + GEN, **kw)
         with recording_routes() as r_plain:
             p_logits, _, _ = backbone.prefill(
                 big, dataclasses.replace(fp32_cfg,
                                          use_pallas_attention=False),
-                prompts, S + GEN)
+                prompts, S + GEN, **kw)
     rel32 = ((k_logits - p_logits).abs().max()
              / p_logits.abs().max()).item()
     print(f"{arch} full width in fp32 ({fp32_cfg.n_layers} layers), kernels "
@@ -1199,12 +1399,15 @@ def phase_serve(arch: str) -> dict:
 
     small_cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
     small, prompts = serve.build(small_cfg, 2, 150, torch.device("cuda"))
+    modal = {k: v for k, v in modal_inputs(small_cfg, 2, 150).items()
+             if k != "mrope_positions"}
     with recording_routes() as r_card:
         g_logits, g_tokens, _, _ = serve.generate(small, small_cfg, prompts,
-                                                  6)
+                                                  6, **modal)
     with recording_routes() as r_cpu:
-        c_logits, c_tokens, _, _ = serve.generate(small.to("cpu"), small_cfg,
-                                                  prompts.cpu(), 6)
+        c_logits, c_tokens, _, _ = serve.generate(
+            small.to("cpu"), small_cfg, prompts.cpu(), 6,
+            **{k: v.cpu() for k, v in modal.items()})
     err = (g_logits.cpu() - c_logits).abs().max().item()
     same = torch.equal(g_tokens.cpu(), c_tokens)
     print(f"{arch} reduced fp32 ({small_cfg.n_layers} layers, prompt 150): "
@@ -1270,50 +1473,56 @@ def flash_times(case) -> dict:
     version and SDPA (both on (B, H, S, Dh) copies, their layout)."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    B, Sq, H, KV, Dh, causal, window, cap, *_, dt = case
+    B, Sq, H, KV, Dh, causal, window, cap = case[:8]
+    dt, Sk = case[10], key_len(case)
     q, k, v = flash_inputs(case, torch.Generator(device="cuda").manual_seed(1))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     kw = dict(causal=causal, window=window, cap=cap)
     ms = cuda_ms(lambda: fa_kernel.flash_attention(q, k, v, **kw))
     plain_ms = cuda_ms(lambda: flash_attention_ref(qt, kt, vt, **kw))
     # SDPA computes the same function only where the window masks nothing
-    # and there is no soft-cap
+    # and there is no soft-cap (and, causal, only at Sq == Sk: its mask
+    # is aligned otherwise)
     library_ms = None
-    if (not window or window >= Sq) and not cap:
+    if (not window or window >= max(Sq, Sk)) and not cap \
+            and not (causal and Sq != Sk):
         try:
-            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                            enable_gqa=True)
 
             def lib_call():
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
         except TypeError:  # torch without enable_gqa: expand kv heads first
             kx, vx = (x.repeat_interleave(H // KV, dim=1) for x in (kt, vt))
 
             def lib_call():
                 return F.scaled_dot_product_attention(qt, kx, vx,
-                                                      is_causal=True)
+                                                      is_causal=causal)
         library_ms = cuda_ms(lib_call)
 
-    # the work this call's masks leave: (query, key) pairs causal and
-    # inside the window
+    # the work this call's masks leave: (query, key) pairs causal (where
+    # the call is) and inside the window
     qpos = torch.arange(Sq, device="cuda")[:, None]
-    kpos = torch.arange(Sq, device="cuda")[None, :]
-    keep = kpos <= qpos
+    kpos = torch.arange(Sk, device="cuda")[None, :]
+    keep = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+    if causal:
+        keep &= kpos <= qpos
     if window:
         keep &= kpos > qpos - window
     pairs = int(keep.sum())
     # bytes: q, k, v read and o written once
     b = bound(nbytes(q, k, v, q), 4 * B * H * pairs * Dh, dt)
-    print(f"  flash_attention (B={B} H={H} KV={KV} S={Sq} Dh={Dh} "
-          f"window={window} cap={cap} {dt} causal, model layout): kernel "
-          f"{ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, SDPA "
+    print(f"  flash_attention (B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} Dh={Dh} "
+          f"window={window} cap={cap} {dt} "
+          f"{'causal' if causal else 'non-causal'}, model layout): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
           f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}; "
-          f"bound {b['bound_ms']:.4f} ms ({b['bytes']} bytes, {b['ops']} "
-          "FLOP)")
-    return {"shape": [B, Sq, H, KV, Dh], "window": window, "cap": cap,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **b}
+          f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} "
+          f"bytes, {b['ops']} FLOP)")
+    return {"shape": [B, Sq, H, KV, Dh], "sk": Sk, "causal": causal,
+            "window": window, "cap": cap, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **b}
 
 
 def lru_times() -> list:
@@ -1726,11 +1935,13 @@ def _fail_segment_once(session, at: int):
     return session
 
 
-def _run_launcher(tmp: Path, runtime: str = "mesh") -> dict:
+def _run_launcher(tmp: Path, runtime: str = "mesh",
+                  typed: bool = True) -> dict:
     """(a) of phase_run and of phase_host: the launcher as typed (with
-    ``--runtime`` where the spec's is not the one asked for), then
-    stopped and resumed, against the ``mesh`` runtime's uninterrupted
-    ``Session.fit`` on the card."""
+    ``--runtime`` where the spec's is not the one asked for; ``typed``
+    False leaves that run out, where the checkpointed pair below already
+    launches the same command), then stopped and resumed, against the
+    ``mesh`` runtime's uninterrupted ``Session.fit`` on the card."""
     from repro_torch import api
     from repro_torch.checkpoint import io as ckpt_io
     from repro_torch.core import trainer
@@ -1738,9 +1949,11 @@ def _run_launcher(tmp: Path, runtime: str = "mesh") -> dict:
     spec = api.load(str(QUICKSTART))
     pick = [] if runtime == spec.runtime.name else ["--runtime", runtime]
     tag = "run" if runtime == "mesh" else "host"     # the phase's prefix
-    _launcher(["--spec", quick, *pick],
-              "the quickstart spec" + (f" on the {runtime} runtime" if pick
-                                       else ", no other flag"), tag)
+    if typed:
+        _launcher(["--spec", quick, *pick],
+                  "the quickstart spec" + (f" on the {runtime} runtime"
+                                           if pick else ", no other flag"),
+                  tag)
     ck = tmp / f"{runtime}_launcher"
     common = ["--spec", quick, *pick, "--ckpt-dir", str(ck), "--ckpt-every",
               str(RUN_EVERY)]
@@ -1888,6 +2101,40 @@ def _run_gridmaze(smi: str) -> dict:
     return {"cells": rows, "scale_sps": sps}
 
 
+def _run_football(smi: str) -> dict:
+    """(e): ``python -m repro_torch.launch.run --spec
+    examples/specs/football_ppo.json --intervals 10`` (``main`` in this
+    process: the mini-football drill, ppo, the threaded host runtime with
+    2 actors and its step-time model); then the spec's first
+    FOOTBALL_INTERVALS on the card against the port's CPU: streams exact,
+    params within PARAMS_TOL."""
+    from repro_torch import api
+    from repro_torch.launch import run
+    t0 = time.perf_counter()
+    lines = _captured(run.main, ["--spec", str(FOOTBALL), "--intervals",
+                                 str(FOOTBALL_LAUNCH_INTERVALS)])
+    wall = time.perf_counter() - t0
+    spec = api.load(str(FOOTBALL))
+    steps = (FOOTBALL_LAUNCH_INTERVALS * spec.hts["alpha"]
+             * spec.hts["n_envs"])
+    check(any(line.startswith(f"[host] {steps} steps") for line in lines),
+          f"football launcher: no '[host] {steps} steps' line in {lines}")
+    card, cpu = (build_session(spec, where).run(FOOTBALL_INTERVALS)
+                 for where in ("cuda", "cpu"))
+    same = _same_streams(card, cpu)
+    diff = _params_diff(card.params, cpu.params)
+    episodes = int(np.asarray(card.dones).sum())
+    print(f"run: football spec on {smi}: launch.run --intervals "
+          f"{FOOTBALL_LAUNCH_INTERVALS} {wall:.1f} s; "
+          f"the first {FOOTBALL_INTERVALS} intervals card vs CPU: streams "
+          f"equal {same} ({episodes} episode ends); params max abs diff "
+          f"{diff:.3e} (tol {PARAMS_TOL})")
+    check(same and episodes > 0, "football: card vs CPU streams")
+    check(diff <= PARAMS_TOL, f"football: card vs CPU params {diff}")
+    return {"launcher_s": wall, "streams_equal": same,
+            "params_max_abs_diff": diff, "episode_ends": episodes}
+
+
 def phase_run() -> dict:
     """The entry point on the card (phase 7 of the docstring). The kernel
     launch counts are zeroed before and read after the training paths:
@@ -1900,11 +2147,13 @@ def phase_run() -> dict:
         launcher = _run_launcher(tmp)
         faults = _run_faults(tmp, launcher.pop("straight"))
     gridmaze = _run_gridmaze(smi)
+    football = _run_football(smi)
     launches = read_launches()
     print(f"run: launches of the port's kernels on the entry point's paths "
           f"{launches}")
     _expect(launches, {}, "entry point paths")
-    res = {"launcher": launcher, "faults": faults, "gridmaze": gridmaze}
+    res = {"launcher": launcher, "faults": faults, "gridmaze": gridmaze,
+           "football": football}
     print("run: " + json.dumps(res))
     return res
 
@@ -2210,7 +2459,9 @@ def phase_host() -> dict:
     zero_launches()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as d:
         tmp = Path(d)
-        launcher = _run_launcher(tmp, "host")
+        # the host launcher's stop and resume are its typed runs: the
+        # plain 40-interval run would repeat them
+        launcher = _run_launcher(tmp, "host", typed=False)
         launcher.pop("straight")
         res = {"launcher": launcher, "faults": _host_faults(tmp)}
     res["host_equals_mesh"] = _host_equals_mesh()
@@ -2658,15 +2909,15 @@ def _llm_backwards() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = {"flash_attention": [], "lru_scan": [], "wkv6": []}
     for case in TRAIN_FLASH:
-        B, S, H, KV, Dh, causal, window, cap, bq, bk, dt = case
+        B, S, H, KV, Dh, causal, window, cap, bq, bk, dt = case[:11]
         kw = dict(causal=causal, window=window, cap=cap, bq=bq, bk=bk)
         rows["flash_attention"].append(_grad_case(
             "flash_attention",
             lambda q, k, v, use_kernel: (fa_ops.attend(
                 q, k, v, use_kernel=use_kernel, **kw),),
             flash_inputs(case, gen),
-            f"(B={B} S={S} H={H} KV={KV} Dh={Dh} window={window} cap={cap}"
-            f" {dt})", gen))
+            f"(B={B} S={S} Sk={key_len(case)} H={H} KV={KV} Dh={Dh} "
+            f"causal={causal} window={window} cap={cap} {dt})", gen))
     for case, init in TRAIN_LRU:
         a, b, h0 = lru_inputs(case, gen)
         rows["lru_scan"].append(_grad_case(
@@ -2783,10 +3034,11 @@ def _memory_reckoning(cfg) -> dict:
     return {"params": n, "state_bytes": state}
 
 
-def _llm_launch(arch: str, smi: str) -> dict:
+def _llm_launch(arch: str, smi: str, flash: int | None = None) -> dict:
     """(b): ``python -m repro_torch.launch.train --arch <arch> --steps 3
     --batch 4 --seq 512`` as typed (``main`` in this process, so the
-    launch counts and the peak memory can be read). The MoE arch's
+    launch counts and the peak memory can be read), with ``flash``
+    (LLM_TRAIN's by default) flash launches a step. The MoE arch's
     load-balance loss (the step's ``aux``) must be nonzero."""
     from unittest import mock
 
@@ -2841,7 +3093,8 @@ def _llm_launch(arch: str, smi: str) -> dict:
           f"({reck['params']:,} params: params, params_prev, grads in bf16,"
           f" Adam m and v fp32); launches {launches}, per step {per_step}; "
           f"{wall:.1f} s in all")
-    _expect(launches, {"flash_attention": LLM_TRAIN[arch] * LLM_STEPS},
+    flash = LLM_TRAIN[arch] if flash is None else flash
+    _expect(launches, {"flash_attention": flash * LLM_STEPS},
             f"{arch} training")
     _free_cuda()
     return {"losses": losses, "aux": aux, "step_ms": step_ms,
@@ -2943,6 +3196,7 @@ def _first_step(arch: str, n_layers: int, dtype: str,
     params = policy.init(determinism.master_key(0, device="cuda"))
     batch = {k: v.cuda() for k, v in TokenStream(
         cfg.vocab_size, LLM_BATCH, LLM_SEQ, 0).skip(1).next_batch().items()}
+    batch.update(modal_batch(cfg, LLM_BATCH, LLM_SEQ))
     with recording_routes() as r_kernel:
         loss_k, grads_k = _train_grads(cfg, params, batch, True)
     with recording_routes() as r_plain:
@@ -3097,6 +3351,204 @@ def _llm_card_vs_cpu() -> dict:
     return rows
 
 
+def _modal_train(arch: str, n_layers: int, smi: str,
+                 per_step: int) -> dict:
+    """(f): LLM_STEPS steps of ``learner.make_train_step`` (Adam, bf16,
+    the kernels on) at full width with ``n_layers`` layers, on token
+    batches of the stream with ``modal_batch``'s inputs: losses finite,
+    ms per step and tokens/s after the first, the peak memory beside the
+    state's reckoning, ``per_step`` flash launches a step."""
+    from repro_torch import models, optim
+    from repro_torch.core import delayed_grad, determinism, learner
+    from repro_torch.data.pipeline import TokenStream
+    policy = models.get_policy("backbone", None, arch=arch,
+                               n_layers=n_layers, use_pallas_attention=True)
+    cfg = policy.config
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    opt = optim.get_optimizer("adam", lr=1e-4)
+    dg = delayed_grad.init(policy.init(determinism.master_key(
+        0, device="cuda")), opt)
+    step = learner.make_train_step(cfg, opt, "a2c")
+    stream = TokenStream(cfg.vocab_size, LLM_BATCH, LLM_SEQ, 0,
+                         device="cuda")
+    extra = modal_batch(cfg, LLM_BATCH, LLM_SEQ)
+    zero_launches()
+    stamps, losses = [time.perf_counter()], []
+    for _ in range(LLM_STEPS):
+        dg, stats = step(dg, {**stream.next_batch(), **extra})
+        losses.append(float(stats["loss"]))       # synchronizes
+        stamps.append(time.perf_counter())
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del dg, step, extra
+    _free_cuda()
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+    tok_s = LLM_BATCH * LLM_SEQ * len(step_ms) / (stamps[-1] - stamps[1])
+    reck = _memory_reckoning(cfg)
+    print(f"llm_train (f) {arch} n_layers={n_layers} d_model={cfg.d_model} "
+          f"bf16, make_train_step with Adam, {LLM_STEPS} steps of "
+          f"{LLM_BATCH}x{LLM_SEQ} tokens" + (
+              f" and {LLM_BATCH}x{cfg.enc_seq} audio frames"
+              if cfg.is_encoder_decoder else "") + (
+              f" with {cfg.vision_prefix} patch positions and 3 M-RoPE "
+              "streams" if cfg.mrope else "") + f" on {smi}: losses "
+          f"{losses}; ms per step after the first {step_ms}; {tok_s:.1f} "
+          f"tokens/s; peak memory {peak / 1e9:.2f} GB against the training "
+          f"state's {reck['state_bytes'] / 1e9:.2f} GB ({reck['params']:,} "
+          f"params); launches {launches}")
+    check(all(np.isfinite(losses)), f"{arch} losses {losses}")
+    _expect(launches, {"flash_attention": per_step * LLM_STEPS},
+            f"{arch} training")
+    return {"n_layers": n_layers, "losses": losses, "step_ms": step_ms,
+            "tokens_s": tok_s, "peak_bytes": peak, **reck,
+            "launches": launches}
+
+
+def _qwen_train(smi: str) -> dict:
+    """(f): Qwen2-VL-72B with Adam at QWEN_TRAIN_LAYERS layers; on an
+    out-of-memory, recorded, at one layer."""
+    arch = "qwen2-vl-72b"
+    for n in (QWEN_TRAIN_LAYERS, 1):
+        try:
+            row = _modal_train(arch, n, smi, 2 * n)
+            if n != QWEN_TRAIN_LAYERS:
+                row["oom_at"] = QWEN_TRAIN_LAYERS
+            return row
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"llm_train (f) {arch} n_layers={n} with Adam: out of "
+                  f"memory ({str(e).splitlines()[0]})")
+            _free_cuda()
+            check(n != 1, f"{arch}: one layer with Adam ran out of memory")
+
+
+def _blocked_on_card(smi: str) -> dict:
+    """(g): ``blocked_attention`` against ``attend_plain`` on the card,
+    forward and q, k, v gradients of sum(out * c) at TRAIN_GRAD_TOL, with
+    each one's forward-and-backward time and peak memory; then one
+    StarCoder2-3B first step at full width and depth through the kernel
+    route (``use_pallas_attention``: the kernel's forward, the VJP of the
+    plain version, which builds the (B, H, S, S) scores, as its
+    backward) and through the blocked route, with each one's peak
+    memory and time; their losses within LLM_LOSS_TOL."""
+    from repro_torch import models
+    from repro_torch.core import determinism
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.attention import blocked_attention
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for case in BLOCKED_CASES:
+        B, S, H, KV, Dh, causal, window, cap = case[:8]
+        dt = case[10]
+        q, k, v = flash_inputs(case, gen)
+        cot = torch.randn(q.shape, generator=gen, device="cuda")
+        kw = dict(causal=causal, window=window, cap=cap)
+        runs = {}
+        for name, fn in (("blocked", lambda *x: blocked_attention(*x, **kw)),
+                         ("plain", lambda *x: fa_ops.attend(
+                             *x, use_kernel=False, **kw))):
+            xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            _free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = fn(*xs)
+            grads = torch.autograd.grad((out.float() * cot).sum(), xs)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+
+            def fwd_bwd(fn=fn):
+                ys = [x.detach().requires_grad_() for x in (q, k, v)]
+                torch.autograd.grad((fn(*ys).float() * cot).sum(), ys)
+            runs[name] = (out, grads, peak, cuda_ms(fwd_bwd, 3, 1))
+        (o_b, g_b, peak_b, ms_b), (o_p, g_p, peak_p, ms_p) = (
+            runs["blocked"], runs["plain"])
+        tol = TRAIN_GRAD_TOL[dt]
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip((o_b, *g_b), (o_p, *g_p))]
+        ok = all(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol)
+                 and a.dtype == b.dtype and bool(torch.isfinite(a).all())
+                 for a, b in zip((o_b, *g_b), (o_p, *g_p)))
+        label = (f"(B={B} Sq={S} Sk={key_len(case)} H={H} KV={KV} Dh={Dh} "
+                 f"causal={causal} window={window} cap={cap} {dt})")
+        print(f"llm_train (g) blocked_attention vs attend_plain {label} on "
+              f"the card: out, dq, dk, dv max abs err "
+              + ", ".join(f"{e:.3e}" for e in errs) + f" (allclose at {tol});"
+              f" forward and backward {ms_b:.3f} ms vs {ms_p:.3f} ms; peak "
+              f"above the inputs {peak_b / 1e6:.1f} MB vs "
+              f"{peak_p / 1e6:.1f} MB; ok {ok}")
+        check(ok, f"blocked_attention vs attend_plain {label}")
+        rows.append({"case": label, "max_abs_err": max(errs), "tol": tol,
+                     "ms": ms_b, "plain_ms": ms_p, "peak_bytes": peak_b,
+                     "plain_peak_bytes": peak_p})
+        del runs, o_b, g_b, o_p, g_p
+    _free_cuda()
+    policy = models.get_policy("backbone", None, arch="starcoder2-3b",
+                               use_pallas_attention=True)
+    cfg = policy.config
+    params = policy.init(determinism.master_key(0, device="cuda"))
+    batch = {k: v.cuda() for k, v in TokenStream(
+        cfg.vocab_size, LLM_BATCH, LLM_SEQ, 0).skip(1).next_batch().items()}
+    route = {}
+    for use_kernel in (True, False):
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = _train_grads(cfg, params, batch, use_kernel)
+        torch.cuda.synchronize()
+        route["kernel" if use_kernel else "blocked"] = {
+            "loss": loss, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "s": time.perf_counter() - t0}
+        del grads
+    del params
+    _free_cuda()
+    kr, br = route["kernel"], route["blocked"]
+    print(f"llm_train (g) starcoder2-3b (30 layers, full width, bf16) first "
+          f"step on {smi}: the kernel route loss {kr['loss']:.6f}, peak "
+          f"{kr['peak_bytes'] / 1e9:.2f} GB, {kr['s']:.3f} s; the blocked "
+          f"route loss {br['loss']:.6f}, peak {br['peak_bytes'] / 1e9:.2f} "
+          f"GB, {br['s']:.3f} s (both with the first call's warm-up)")
+    check(abs(kr["loss"] - br["loss"]) <= LLM_LOSS_TOL,
+          "starcoder2-3b first step: kernel vs blocked route losses")
+    return {"cases": rows, "starcoder2_first_step": route}
+
+
+def _danube_adam(smi: str) -> dict:
+    """(h): ``launch.train --arch h2o-danube-3-4b --steps 3`` with Adam at
+    full depth (24 layers): ms per step and the peak, or the
+    out-of-memory, recorded."""
+    try:
+        # 24 layers: the forward and the checkpointed recompute
+        return _llm_launch(DANUBE_ADAM, smi, 48)
+    except torch.cuda.OutOfMemoryError as e:
+        print(f"llm_train (h) launch.train --arch {DANUBE_ADAM} with Adam at "
+              f"full depth on {smi}: out of memory "
+              f"({str(e).splitlines()[0]})")
+        _free_cuda()
+        return {"oom": str(e).splitlines()[0]}
+
+
+def _example_llm(smi: str) -> dict:
+    """(i): ``python examples/torch_llm_policy_hts.py --intervals
+    EXAMPLE_INTERVALS`` (``main`` in this process), on the card."""
+    import importlib.util
+    path = ROOT / "examples" / "torch_llm_policy_hts.py"
+    spec = importlib.util.spec_from_file_location("torch_llm_policy_hts",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    acc = mod.main(["--intervals", str(EXAMPLE_INTERVALS)])
+    wall = time.perf_counter() - t0
+    print(f"llm_train (i) examples/torch_llm_policy_hts.py --intervals "
+          f"{EXAMPLE_INTERVALS} on {smi}: behavior-policy accuracy {acc}; "
+          f"{wall:.1f} s")
+    check(len(acc) >= 2 and all(0.0 <= a <= 1.0 for a in acc),
+          f"torch_llm_policy_hts accuracies {acc}")
+    return {"accuracy": acc, "wall_s": wall}
+
+
 def phase_llm_train() -> dict:
     """LLM-policy training on the card (phase 10 of the docstring)."""
     import tempfile
@@ -3116,6 +3568,12 @@ def phase_llm_train() -> dict:
                                   ("float32", CARD_CPU_LOSS_TOL))}
         for arch, n_layers in LLM_FIRST_STEP.items()}
     res["card_vs_cpu"] = _llm_card_vs_cpu()
+    res["launch"]["whisper-medium"] = _modal_train(
+        "whisper-medium", 24, smi, WHISPER_TRAIN_FLASH)
+    res["launch"]["qwen2-vl-72b"] = _qwen_train(smi)
+    res["blocked"] = _blocked_on_card(smi)
+    res["danube_adam"] = _danube_adam(smi)
+    res["example"] = _example_llm(smi)
     print(f"llm_train: phase {time.perf_counter() - t0:.1f} s")
     print("llm_train: " + json.dumps(res, default=str))
     return res

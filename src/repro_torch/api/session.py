@@ -4,9 +4,9 @@ the port's registries and wrap the constructed runtime in one surface.
 Counterpart of ``repro/api/session.py``. ``build`` validates loudly:
 unknown registry names raise ``KeyError`` listing what is registered, a
 device-port env named as a workload or bad component kwargs raise
-``ValueError``. A runtime, env or surface the reference has and the
-port does not yet raises ``NotImplementedError`` naming the ROADMAP
-queue 1 item that brings it; nothing runs in its place.
+``ValueError``. The one part of the reference the port does not run, the
+stream runtime's TPU meshes, raises ``NotImplementedError`` naming its
+ROADMAP item (``core/stream_runtime.py``); nothing runs in its place.
 
 ``Session`` wraps the engine contract (``run``/``state``/``run_from``)
 and adds ``fit`` (checkpointed training through ``core/trainer.Trainer``
@@ -44,13 +44,6 @@ from repro_torch.core import determinism, engine
 from repro_torch.core.engine import HTSConfig, RunResult, TrainState
 from repro_torch.envs.interfaces import Env
 
-# what the reference builds and the port does not yet: name -> the
-# ROADMAP queue 1 item that brings it
-UNPORTED_RUNTIMES: Dict[str, str] = {}
-UNPORTED_ENVS = {
-    "football": "item 8 (football and the benchmarks)",
-}
-
 # the LLM learner's runtime: not in the engine registry (its workload is
 # a TokenStream, not an Env; core/stream_runtime.py)
 _STREAM_RUNTIME = "stream"
@@ -60,15 +53,9 @@ _STREAM_RUNTIME = "stream"
 _BATCH_RUNTIMES = ("host", "mesh", "sharded")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP queue 1, {item}")
-
-
 def runtime_names() -> list:
-    """Every runtime name a spec may carry, ported or not."""
-    return sorted(set(engine.runtime_names()) | set(UNPORTED_RUNTIMES)
-                  | {_STREAM_RUNTIME})
+    """Every runtime name a spec may carry."""
+    return sorted(set(engine.runtime_names()) | {_STREAM_RUNTIME})
 
 
 def _decode_steptime(value, where: str):
@@ -125,8 +112,6 @@ def build(spec: ExperimentSpec, device="cuda",
     device = resolve_device(device)
 
     rt_name = spec.runtime.name
-    if rt_name in UNPORTED_RUNTIMES:
-        raise _not_ported(f"runtime {rt_name!r}", UNPORTED_RUNTIMES[rt_name])
     if rt_name != _STREAM_RUNTIME:
         try:
             engine.get_runtime(rt_name)    # existence check
@@ -134,9 +119,6 @@ def build(spec: ExperimentSpec, device="cuda",
             raise KeyError(f"unknown runtime {rt_name!r}; "
                            f"registered: {runtime_names()}") from None
     algorithms.get_algorithm(spec.algorithm)
-    if spec.env.name in UNPORTED_ENVS:
-        raise _not_ported(f"env {spec.env.name!r}",
-                          UNPORTED_ENVS[spec.env.name])
     env_factory = envs.get_env_factory(spec.env.name)
     try:
         env = env_factory(**spec.env.kwargs)

@@ -21,9 +21,12 @@ whole continuation capsule too (``train_state_from_jax``), and
 reference's layout: what the checkpoints hold.
 
 The backbone's params are a flat ``{name: tensor}`` dict in the port
-(``Backbone.named_parameters``); ``backbone_params_from_jax`` unstacks
-the reference's tree into it and ``backbone_params_to_reference`` stacks
-it back, and ``backbone_state_*`` carry a whole backbone
+(``Backbone.named_parameters``; an encoder-decoder's encoder under
+``encoder.layers.<i>``, its cross-attention under ``layers.<i>.xattn``
+and ``norm_x``); ``backbone_params_from_jax`` unstacks the reference's
+tree (``encoder/layers`` stacked as ``blocks`` are) into it and
+``backbone_params_to_reference`` stacks it back, and ``backbone_state_*``
+carry a whole backbone
 ``DelayedGradState`` (params, params_prev, the Adam or RMSProp moments,
 step) both ways, so checkpoints keep the reference's treedef.
 
@@ -104,6 +107,12 @@ def backbone_params_from_jax(tree: dict, cfg: ModelConfig, device=None,
     state.update(_flatten(tree["final_norm"], "final_norm."))
     for n, layer in enumerate(unstack_layers(tree, cfg)):
         state.update(_flatten(layer, f"layers.{n}."))
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        for n in range(cfg.n_enc_layers):
+            state.update(_flatten(_index(enc["layers"], n),
+                                  f"encoder.layers.{n}."))
+        state.update(_flatten(enc["final_norm"], "encoder.final_norm."))
     expected = backbone.Backbone(cfg, device="meta").state_dict()
     if set(state) != set(expected):
         raise ValueError("param trees differ: missing "
@@ -140,15 +149,21 @@ def _nest(flat: dict) -> dict:
     return out
 
 
+def _subtree(params: dict, prefix: str) -> dict:
+    """The params under ``prefix`` (a dotted path ending in a dot),
+    nested, the prefix taken off."""
+    return _nest({k[len(prefix):]: v for k, v in params.items()
+                  if k.startswith(prefix)})
+
+
 def backbone_params_to_reference(params: dict, cfg: ModelConfig) -> dict:
     """The inverse of ``backbone_params_from_jax``: the flat params (any
     device, meta included) in the reference's tree, each cycle position's
-    layers stacked under ``blocks/l<i>`` (block axis first) and the
-    left-over layers in ``rem``. Leaves stay tensors of their dtype (bf16
-    too; ``checkpoint.io`` stores it as the reference does)."""
-    layers_ = [_nest({k[len(f"layers.{n}."):]: v for k, v in params.items()
-                      if k.startswith(f"layers.{n}.")})
-               for n in range(cfg.n_layers)]
+    layers stacked under ``blocks/l<i>`` (block axis first), the
+    left-over layers in ``rem`` and an encoder's layers stacked under
+    ``encoder/layers``. Leaves stay tensors of their dtype (bf16 too;
+    ``checkpoint.io`` stores it as the reference does)."""
+    layers_ = [_subtree(params, f"layers.{n}.") for n in range(cfg.n_layers)]
     cyc = cfg.cycle_len
     n_blocks = cfg.n_layers // cyc
 
@@ -161,13 +176,16 @@ def backbone_params_to_reference(params: dict, cfg: ModelConfig) -> dict:
             "blocks": {f"l{i}": stack([layers_[b * cyc + i]
                                        for b in range(n_blocks)])
                        for i in range(cyc)},
-            "final_norm": _nest({k[len("final_norm."):]: v
-                                 for k, v in params.items()
-                                 if k.startswith("final_norm.")}),
+            "final_norm": _subtree(params, "final_norm."),
             "lm_head": params["lm_head"],
             "value_head": params["value_head"]}
     if n_blocks * cyc < cfg.n_layers:
         tree["rem"] = layers_[n_blocks * cyc:]
+    if cfg.is_encoder_decoder:
+        tree["encoder"] = {
+            "layers": stack([_subtree(params, f"encoder.layers.{n}.")
+                             for n in range(cfg.n_enc_layers)]),
+            "final_norm": _subtree(params, "encoder.final_norm.")}
     return tree
 
 

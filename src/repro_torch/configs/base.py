@@ -2,8 +2,8 @@
 ``repro/configs/base.py`` (the port imports nothing of ``repro``).
 
 Fields, defaults and ``reduced()`` are kept identical to the reference so
-a config means the same thing on both sides of the bridge. Only the
-architectures the port can run are registered.
+a config means the same thing on both sides of the bridge. The port
+registers every architecture the reference registers.
 """
 from __future__ import annotations
 
@@ -168,10 +168,8 @@ def get_config(name: str) -> ModelConfig:
     if not _REGISTRY:
         _load_all()
     if name not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; the port registers "
-                       f"{sorted(_REGISTRY)} (whisper-medium, an "
-                       "encoder-decoder, and qwen2-vl-72b, a VLM, wait for "
-                       "a later slice, ROADMAP queue 1, item 7b)")
+        raise KeyError(f"unknown arch {name!r}; registered: "
+                       f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
@@ -185,5 +183,5 @@ def _load_all() -> None:
     # import side-effect registers every config module in this package
     from repro_torch.configs import (  # noqa: F401
         gemma2_27b, granite_moe_1b_a400m, h2o_danube_3_4b,
-        llama4_scout_17b_a16e, recurrentgemma_9b, rwkv6_7b, stablelm_12b,
-        starcoder2_3b)
+        llama4_scout_17b_a16e, qwen2_vl_72b, recurrentgemma_9b, rwkv6_7b,
+        stablelm_12b, starcoder2_3b, whisper_medium)

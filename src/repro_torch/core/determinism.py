@@ -164,8 +164,11 @@ def permutation(key, x):
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0):
     """fp32 uniforms in [minval, maxval), bit-exact with jax.random."""
     bits = random_bits(key, shape)
-    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    floats = floats - 1.0
+    # jax's float of the top 23 bits, (0x3F800000 | m) as float minus 1,
+    # is m * 2^-23 exactly; computed so, without a view of the bits as
+    # float32 (which torch.func.vmap has no batching rule for in some
+    # torch versions)
+    floats = (bits >> 9).to(torch.float32) * 2.0 ** -23
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)

@@ -36,12 +36,18 @@ def _skeleton(cfg: ModelConfig) -> backbone.Backbone:
     return backbone.Backbone(cfg, device="meta")
 
 
+# the batch's modality inputs, passed to the backbone when present
+_EXTRAS = ("positions", "mrope_positions", "patch_embeds", "audio_embeds")
+
+
 def policy_hidden(params: dict, cfg: ModelConfig, batch, remat: bool = True):
     """(hidden (B, S, D), aux): aux is the MoE layers' load-balance loss
-    summed over layers (0 for a dense decoder)."""
+    summed over layers (0 for a dense decoder). The batch may carry
+    ``positions``, ``mrope_positions`` (3, B, S), ``patch_embeds`` and
+    ``audio_embeds``, as the reference's (``core/learner.py:31-40``)."""
     return torch.func.functional_call(
         _skeleton(cfg), params, (cfg, batch["tokens"]),
-        {"positions": batch.get("positions"), "remat": remat})
+        {**{k: batch.get(k) for k in _EXTRAS}, "remat": remat})
 
 
 def _heads(h, lm_head, value_head, cfg: ModelConfig):
@@ -131,10 +137,16 @@ def rl_loss(params: dict, cfg: ModelConfig, batch, algorithm: str = "a2c",
 
 
 def _microbatches(batch: dict, n: int) -> list:
-    """The batch split on its leading axis into ``n`` slices; a leaf
-    whose leading axis ``n`` does not divide is repeated in each."""
+    """The batch split on its batch axis into ``n`` slices: the leading
+    axis, but the second of ``mrope_positions`` (3, B, S), as the
+    reference splits it (``core/learner.py:181-187``); a leaf whose
+    leading axis ``n`` does not divide is repeated in each."""
     out = [{} for _ in range(n)]
     for k, v in batch.items():
+        if k == "mrope_positions":
+            for o, part in zip(out, v.chunk(n, dim=1)):
+                o[k] = part
+            continue
         B = v.shape[0] if v.dim() else 1
         parts = (v.chunk(n) if v.dim() >= 1 and B % n == 0
                  else [v] * n)
@@ -176,9 +188,15 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
         leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
         with torch.enable_grad():
             st, aux = rl_loss_parts(leaves, cfg, batch, algorithm)
+            # a leaf the loss does not reach (an encoder-decoder's encoder
+            # and cross-attention on a batch without audio) gets zeros,
+            # as the reference's gradient gives it
             grads = torch.autograd.grad(st.total + aux,
-                                        list(leaves.values()))
-        return dict(zip(leaves, grads)), [x.detach() for x in (*st, aux)]
+                                        list(leaves.values()),
+                                        allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(leaves.items(), grads)}
+        return grads, [x.detach() for x in (*st, aux)]
 
     def train_step(dg: delayed_grad.DelayedGradState, batch: dict):
         if n_microbatches <= 1:
@@ -210,15 +228,21 @@ def make_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
 
     def prefill_step(params: dict, batch):
         return backbone.prefill(backbone.from_params(cfg, params), cfg,
-                                batch["tokens"], max_len)
+                                batch["tokens"], max_len,
+                                **{k: batch.get(k) for k in _EXTRAS})
 
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
-    """One-token decode; the actor's hot path."""
+    """One-token decode; the actor's hot path. ``extras`` may carry
+    ``mrope_positions`` (3, B, 1) and ``enc_out``."""
 
-    def serve_step(model, token, cache, pos):
-        return backbone.decode_step(model, cfg, token, cache, pos)
+    def serve_step(model, token, cache, pos, extras=None):
+        extras = extras or {}
+        return backbone.decode_step(
+            model, cfg, token, cache, pos,
+            mrope_positions=extras.get("mrope_positions"),
+            enc_out=extras.get("enc_out"))
 
     return serve_step

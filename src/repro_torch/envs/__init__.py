@@ -6,9 +6,10 @@ Counterpart of ``repro/envs/__init__.py``. Registered: ``catch`` and
 ``HTSConfig.env_backend="device"``; ``envs.device`` resolves a host
 env's port), ``token`` (next-token prediction as an MDP) and
 ``token_stream`` (``data.pipeline.TokenStream``, the workload of the
-``stream`` runtime). ``football`` is not ported yet (ROADMAP queue 1).
-Built-ins load on first lookup; an unknown
-name raises ``KeyError`` listing the names.
+``stream`` runtime) and ``football`` (the mini-football drill; its
+multi-player variant is ``football.make_multi``). Built-ins load on first
+lookup; an unknown name raises ``KeyError`` listing the names. Third
+parties add entries with ``@register_env``, as in the reference.
 """
 from __future__ import annotations
 
@@ -21,12 +22,22 @@ _REGISTRY: Dict[str, Callable[..., Any]] = {}
 _LAZY: Dict[str, tuple] = {
     "catch": ("repro_torch.envs.catch", "make"),
     "gridmaze": ("repro_torch.envs.gridmaze", "make"),
+    "football": ("repro_torch.envs.football", "make"),
     "catch_device": ("repro_torch.envs.device.catch", "make"),
     "gridmaze_device": ("repro_torch.envs.device.gridmaze", "make"),
     "token": ("repro_torch.envs.token_env", "make"),
     # the batched token source of the ``stream`` runtime, not an Env
     "token_stream": ("repro_torch.data.pipeline", "TokenStream"),
 }
+
+
+def register_env(name: str):
+    """Factory decorator: ``@register_env("my_env")`` over a
+    ``(**kwargs) -> Env`` callable."""
+    def deco(factory):
+        _REGISTRY[name] = factory
+        return factory
+    return deco
 
 
 def get_env_factory(name: str) -> Callable[..., Any]:

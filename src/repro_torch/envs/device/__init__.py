@@ -12,7 +12,8 @@ so the rollout consumes either. ``HTSConfig.env_backend`` picks one
 (``batched_env``). The oracle contract: for every port,
 ``vectorize(host_env, n)`` and the port give bit-identical (state, obs,
 reward, done) for identical (keys, actions), through auto-resets.
-Registered ports: ``catch``, ``gridmaze``.
+Registered ports: ``catch``, ``gridmaze``; third parties add theirs with
+``@register_device_port``, keyed by the host env's registry name.
 """
 from __future__ import annotations
 
@@ -61,6 +62,16 @@ _LAZY: Dict[str, tuple] = {
     "catch": ("repro_torch.envs.device.catch", "make"),
     "gridmaze": ("repro_torch.envs.device.gridmaze", "make"),
 }
+
+
+def register_device_port(host_name: str):
+    """Factory decorator: ``@register_device_port("my_env")`` over a
+    ``(**kwargs) -> DeviceEnv`` callable, keyed by the HOST env's
+    registry name (the oracle it ports)."""
+    def deco(factory):
+        _REGISTRY[host_name] = factory
+        return factory
+    return deco
 
 
 def has_device_port(host_name: str) -> bool:

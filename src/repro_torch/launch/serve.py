@@ -19,8 +19,14 @@ schedule plus ``--device`` (default ``cuda``)::
 ``--arch`` is one of the port's registered configs
 (``configs.base.list_configs``): the dense decoders ``starcoder2-3b``,
 ``gemma2-27b``, ``h2o-danube-3-4b``, ``stablelm-12b``, the hybrids
-``recurrentgemma-9b`` and ``rwkv6-7b``, and the MoE decoders
-``granite-moe-1b-a400m`` and ``llama4-scout-17b-a16e``; ``--n-layers``
+``recurrentgemma-9b`` and ``rwkv6-7b``, the MoE decoders
+``granite-moe-1b-a400m`` and ``llama4-scout-17b-a16e``, the
+encoder-decoder ``whisper-medium`` and the VLM ``qwen2-vl-72b``. Their
+modality inputs are the reference's stub (``launch/serve.py:98-131``):
+zero ``audio_embeds`` at prefill and a zero ``enc_out`` at every decode
+step (so decode does not see the encoder's output of the prompt's
+audio), zero ``patch_embeds``, and M-RoPE positions ``arange(S)`` in all
+three streams at prefill and ``S + i`` at decode step i. ``--n-layers``
 cuts the depth, keeping the widths, as ``launch/train.py``'s does
 (Llama-4-Scout's 48 layers do not fit one card; 4, one iRoPE cycle, do)::
 
@@ -105,14 +111,58 @@ def serve_policy(args) -> dict:
     return metrics
 
 
+def stub_inputs(cfg: ModelConfig, batch: int, prompt_len: int,
+                device) -> dict:
+    """The prefill's modality inputs of the reference's stub: zero audio
+    and patch embeddings (in the model dtype, where the reference's are
+    bf16: zeros either way), M-RoPE positions ``arange(S)`` in each of
+    the three streams; {} for a text-only decoder."""
+    dt = getattr(torch, cfg.dtype)
+    kw = {}
+    if cfg.is_encoder_decoder:
+        kw["audio_embeds"] = torch.zeros((batch, cfg.enc_seq, cfg.d_model),
+                                         dtype=dt, device=device)
+    if cfg.vision_prefix:
+        kw["patch_embeds"] = torch.zeros(
+            (batch, cfg.vision_prefix, cfg.d_model), dtype=dt, device=device)
+    if cfg.mrope:
+        kw["mrope_positions"] = torch.arange(prompt_len, device=device) \
+            .expand(3, batch, prompt_len)
+    return kw
+
+
+def decode_extras(cfg: ModelConfig, batch: int, pos: int, device,
+                  enc_out=None) -> dict:
+    """Decode step ``pos``'s extras: M-RoPE positions (3, B, 1) at
+    ``pos``, and ``enc_out`` (the stub's zeros unless given)."""
+    extras = {}
+    if cfg.mrope:
+        extras["mrope_positions"] = torch.full((3, batch, 1), pos,
+                                               device=device)
+    if cfg.is_encoder_decoder:
+        extras["enc_out"] = enc_out if enc_out is not None else torch.zeros(
+            (batch, cfg.enc_seq, cfg.d_model), dtype=getattr(torch, cfg.dtype),
+            device=device)
+    return extras
+
+
 @torch.inference_mode()
 def generate(model, cfg: ModelConfig, prompts, gen: int,
-             temperature: float = 0.0, seed: int = 0):
+             temperature: float = 0.0, seed: int = 0, audio_embeds=None,
+             patch_embeds=None):
     """Prefill, pick at step 0, then decode at position S + i
     (``launch/serve.py:116-135``). Returns (prefill_logits, tokens,
-    prefill_s, decode_s)."""
+    prefill_s, decode_s). The modality inputs are the stub's
+    (``stub_inputs``, ``decode_extras``) unless ``audio_embeds`` or
+    ``patch_embeds`` are given: then the encoder runs once on
+    ``audio_embeds`` and its output feeds the prefill's and every decode
+    step's cross-attention."""
     device = prompts.device
     B, S = prompts.shape
+    kw = stub_inputs(cfg, B, S, device)
+    if patch_embeds is not None:
+        kw["patch_embeds"] = patch_embeds
+    enc_out = None
     master = determinism.master_key(seed, device=device)
     rows = torch.arange(B, device=device)
 
@@ -124,7 +174,11 @@ def generate(model, cfg: ModelConfig, prompts, gen: int,
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, _, cache = backbone.prefill(model, cfg, prompts, S + gen)
+    if audio_embeds is not None:
+        kw.pop("audio_embeds", None)
+        kw["enc_out"] = enc_out = backbone.run_encoder(model, cfg,
+                                                       audio_embeds)
+    logits, _, cache = backbone.prefill(model, cfg, prompts, S + gen, **kw)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     prefill_logits = logits
@@ -134,7 +188,9 @@ def generate(model, cfg: ModelConfig, prompts, gen: int,
     out = [tok]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, _, cache = serve(model, tok[:, None], cache, S + i)
+        logits, _, cache = serve(model, tok[:, None], cache, S + i,
+                                 decode_extras(cfg, B, S + i, device,
+                                               enc_out))
         tok = pick(logits, i + 1)
         out.append(tok)
     _sync(device)

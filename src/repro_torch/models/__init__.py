@@ -136,7 +136,6 @@ def _load_builtins() -> None:
             cfg = dataclasses.replace(cfg, **{
                 k: tuple(v) if isinstance(v, list) else v
                 for k, v in overrides.items()})
-        backbone.check_supported(cfg)
 
         def init(key):
             # the key's two uint32 words seed a generator on its device:

@@ -1,12 +1,19 @@
-"""Decoder backbone: embed, a stack of decoder layers, final norm, LM and
-value heads.
+"""Decoder / encoder-decoder backbone: embed, a stack of decoder layers,
+final norm, LM and value heads; for an encoder-decoder also an encoder
+and a cross-attention sublayer in every decoder layer.
 
-Counterpart of ``repro/models/backbone.py`` for decoders of ATTN_FULL,
-ATTN_LOCAL, RGLRU and RWKV mixers with the dense or the MoE FFN
-(``models/moe.py``, ``moe_dropless.py``). The reference
-stacks each mixer/ffn cycle's params under ``blocks/l<i>``, scans over
-them and runs the left-over layers (``rem``) unrolled; here each layer is
-one ``DecoderLayer`` in an ``nn.ModuleList`` (``bridge.py`` unstacks), so
+Counterpart of ``repro/models/backbone.py`` for ATTN_FULL, ATTN_LOCAL,
+RGLRU and RWKV mixers with the dense or the MoE FFN (``models/moe.py``,
+``moe_dropless.py``), Whisper's encoder and cross-attention, and
+Qwen2-VL's M-RoPE and vision prefix. The modality frontends are stubs, as
+in the reference: ``audio_embeds`` (B, enc_seq, d) are the encoder's
+input (``run_encoder``; its output ``enc_out`` is what every decoder
+layer's cross-attention reads), and ``patch_embeds`` (B, vision_prefix,
+d) overwrite the first ``vision_prefix`` embedded positions. The
+reference stacks each mixer/ffn cycle's params under ``blocks/l<i>``,
+scans over them and runs the left-over layers (``rem``) unrolled; here
+each layer is one ``DecoderLayer`` in an ``nn.ModuleList`` (``bridge.py``
+unstacks; the encoder's layers likewise under ``encoder.layers``), so
 the cycle exists only in the bridge. Modules hold the weights; the config
 is passed on each call, as the reference passes it beside the params, so
 one set of weights can run with and without the kernels.
@@ -32,24 +39,18 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from repro_torch.configs.base import (ATTN_LOCAL, FFN_DENSE, FFN_MOE, RGLRU,
-                                      RWKV, ModelConfig)
+from repro_torch.configs.base import (ATTN_FULL, ATTN_LOCAL, FFN_DENSE,
+                                      FFN_MOE, RGLRU, RWKV, ModelConfig)
 from repro_torch.models import attention, layers, moe, rglru, rwkv6
-
-_NOT_PORTED = ("not ported yet: the encoder-decoder (Whisper's encoder "
-               "and cross-attention) and the VLM inputs (Qwen2-VL's M-RoPE "
-               "and vision prefix) wait for a later slice, ROADMAP queue "
-               "1, item 7b")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_encoder_decoder or cfg.vision_prefix or cfg.mrope:
-        raise NotImplementedError(f"{cfg.name}: " + _NOT_PORTED)
 
 
 class DecoderLayer(nn.Module):
+    """One layer (``backbone.py:_init_layer``, ``_apply_layer``); with
+    ``cross`` also ``norm_x`` and the cross-attention ``xattn``."""
+
     def __init__(self, cfg: ModelConfig, mixer_kind: str,
-                 ffn_kind: str = FFN_DENSE, device=None):
+                 ffn_kind: str = FFN_DENSE, cross: bool = False,
+                 device=None):
         super().__init__()
         self.mixer_kind = mixer_kind
         self.norm1 = layers.Norm(cfg, cfg.d_model, device=device)
@@ -62,11 +63,18 @@ class DecoderLayer(nn.Module):
         self.norm2 = layers.Norm(cfg, cfg.d_model, device=device)
         self.ffn = (moe.MoE(cfg, device=device) if ffn_kind == FFN_MOE
                     else layers.MLP(cfg, device=device))
+        if cross:
+            self.norm_x = layers.Norm(cfg, cfg.d_model, device=device)
+            self.xattn = attention.Attention(cfg, device=device)
+        else:
+            self.xattn = None
 
-    def forward(self, x, cfg: ModelConfig, *, positions=None, cache=None,
-                cache_pos=None):
+    def forward(self, x, cfg: ModelConfig, *, positions=None,
+                mrope_positions=None, causal: bool = True, cache=None,
+                cache_pos=None, enc_out=None):
         """(x, cache, aux): aux is the MoE's load-balance loss, None for
-        the dense FFN."""
+        the dense FFN. The cross-attention runs when the layer has one
+        and ``enc_out`` is given, as in the reference."""
         h = self.norm1(x)
         if self.mixer_kind == RGLRU:
             out, cache = rglru.apply_rglru_block(self.mixer, h, cfg, cache)
@@ -74,9 +82,16 @@ class DecoderLayer(nn.Module):
             out, cache = rwkv6.apply_rwkv6_block(self.mixer, h, cfg, cache)
         else:
             out, cache = self.mixer(h, cfg, mixer_kind=self.mixer_kind,
-                                    positions=positions, cache=cache,
+                                    positions=positions,
+                                    mrope_positions=mrope_positions,
+                                    causal=causal, cache=cache,
                                     cache_pos=cache_pos)
         x = x + out
+        if self.xattn is not None and enc_out is not None:
+            h = self.norm_x(x)
+            out, _ = self.xattn(h, cfg, mixer_kind=ATTN_FULL, causal=False,
+                                kv_override=enc_out)
+            x = x + out
         h = self.norm2(x)
         if isinstance(self.ffn, moe.MoE):
             out, aux = self.ffn(h, cfg)
@@ -85,15 +100,28 @@ class DecoderLayer(nn.Module):
         return x + out, cache, aux
 
 
+class Encoder(nn.Module):
+    """Whisper's encoder (``params["encoder"]``, ``backbone.py:154-163``):
+    ``n_enc_layers`` full-attention layers with the dense FFN, no cross,
+    and a final norm."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, ATTN_FULL, FFN_DENSE, device=device)
+            for _ in range(cfg.n_enc_layers))
+        self.final_norm = layers.Norm(cfg, cfg.d_model, device=device)
+
+
 class Backbone(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_supported(cfg)
         dt = layers.cdtype(cfg)
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
                                               dtype=dt, device=device))
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, mixer, ffn, device=device)
+            DecoderLayer(cfg, mixer, ffn, cross=cfg.is_encoder_decoder,
+                         device=device)
             for mixer, ffn in cfg.layer_kinds)
         self.final_norm = layers.Norm(cfg, cfg.d_model, device=device)
         self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size,
@@ -101,13 +129,18 @@ class Backbone(nn.Module):
         self.value_head = nn.Parameter(torch.zeros(cfg.d_model, 1,
                                                    dtype=torch.float32,
                                                    device=device))
+        self.encoder = (Encoder(cfg, device=device)
+                        if cfg.is_encoder_decoder else None)
 
     def forward(self, cfg: ModelConfig, tokens, positions=None,
-                remat: bool = False):
+                remat: bool = False, mrope_positions=None,
+                patch_embeds=None, audio_embeds=None):
         """(the final hidden states (B, S, D) of a full sequence, the
         summed load-balance loss)."""
         hidden, _, aux = forward(self, cfg, tokens, positions=positions,
-                                 remat=remat)
+                                 mrope_positions=mrope_positions,
+                                 patch_embeds=patch_embeds,
+                                 audio_embeds=audio_embeds, remat=remat)
         return hidden, aux
 
 
@@ -134,8 +167,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     weights across with ``bridge.params_from_jax``."""
     model = Backbone(cfg, device=device)
     layers.normal_(model.embed, generator, cfg.d_model ** -0.5)
-    for layer in model.layers:
+    enc = [] if model.encoder is None else list(model.encoder.layers)
+    for layer in [*model.layers, *enc]:
         layer.mixer.init_weights(generator)
+        if layer.xattn is not None:
+            layer.xattn.init_weights(generator)
         layer.ffn.init_weights(generator)
     layers.normal_(model.lm_head, generator, cfg.d_model ** -0.5)
     return model
@@ -160,31 +196,56 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
             for mixer, _ in cfg.layer_kinds]
 
 
-def _remat_layer(layer: DecoderLayer, x, cfg: ModelConfig, positions):
+def _remat_layer(layer: DecoderLayer, x, cfg: ModelConfig, kw: dict):
     """One layer under ``torch.utils.checkpoint``: the backward runs it
     again instead of keeping its intermediates. Its weights go in as
     arguments, so the recompute sees them even when the caller swapped
-    them in with ``functional_call`` and has swapped them out since.
+    them in with ``functional_call`` and has swapped them out since; so
+    does ``enc_out``, which carries gradient back to the encoder.
     Returns (x, aux), as the reference's remat'd block carries aux out."""
     names, weights = zip(*layer.named_parameters())
+    kw = dict(kw)
+    enc_out = kw.pop("enc_out", None)
 
-    def run(x, *ws):
+    def run(x, enc, *ws):
         x, _, aux = torch.func.functional_call(
-            layer, dict(zip(names, ws)), (x, cfg),
-            {"positions": positions})
+            layer, dict(zip(names, ws)), (x, cfg), {**kw, "enc_out": enc})
         return x, aux
 
-    return torch.utils.checkpoint.checkpoint(run, x, *weights,
+    return torch.utils.checkpoint.checkpoint(run, x, enc_out, *weights,
                                              use_reentrant=False)
 
 
+def run_encoder(model: Backbone, cfg: ModelConfig, audio_embeds):
+    """Whisper's encoder over frame embeddings (B, enc_seq, d) in the
+    model dtype: non-causal self-attention with RoPE at the default
+    positions, then the final norm (``backbone.py:192-201``)."""
+    x = audio_embeds.to(layers.cdtype(cfg))
+    for layer in model.encoder.layers:
+        x, _, _ = layer(x, cfg, causal=False)
+    return model.encoder.final_norm(x)
+
+
+def _embed_inputs(model: Backbone, cfg: ModelConfig, tokens, patch_embeds):
+    """The token embeddings; ``patch_embeds`` (B, P, d) overwrite the
+    first P positions, not prepended (``backbone.py:204-210``)."""
+    x = layers.apply_embed(model.embed, tokens) * math.sqrt(cfg.d_model)
+    x = x.to(layers.cdtype(cfg))
+    if cfg.vision_prefix and patch_embeds is not None:
+        P = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, P:]], dim=1)
+    return x
+
+
 def forward(model: Backbone, cfg: ModelConfig, tokens, *, positions=None,
-            cache=None, cache_pos=None, remat: bool = False):
+            mrope_positions=None, patch_embeds=None, audio_embeds=None,
+            enc_out=None, cache=None, cache_pos=None, remat: bool = False):
     """Full sequence (cache None), prefill (cache given, S > 1) or decode
     (cache given, S == 1, cache_pos given). Returns (hidden, cache, aux):
     aux the MoE layers' load-balance loss summed over layers, fp32, and 0
     when a cache is given, as in the reference. ``remat`` (full sequence
-    only): checkpoint every layer.
+    only): checkpoint every decoder layer. An encoder-decoder runs its
+    encoder on ``audio_embeds`` unless ``enc_out`` is given.
 
     Each layer's returned cache replaces its entry in the caller's list:
     attention writes its k/v in place and returns the same dict, the
@@ -192,16 +253,19 @@ def forward(model: Backbone, cfg: ModelConfig, tokens, *, positions=None,
     if remat and cache is not None:
         raise ValueError("remat applies to a full-sequence forward (no "
                          "cache)")
-    x = layers.apply_embed(model.embed, tokens) * math.sqrt(cfg.d_model)
-    x = x.to(layers.cdtype(cfg))
+    if enc_out is None and cfg.is_encoder_decoder and audio_embeds is not None:
+        enc_out = run_encoder(model, cfg, audio_embeds)
+    x = _embed_inputs(model, cfg, tokens, patch_embeds)
+    kw = dict(positions=positions, mrope_positions=mrope_positions,
+              enc_out=enc_out)
     aux = torch.zeros((), device=x.device)
     for i, layer in enumerate(model.layers):
         if remat:
-            x, a = _remat_layer(layer, x, cfg, positions)
+            x, a = _remat_layer(layer, x, cfg, kw)
         else:
-            x, new, a = layer(x, cfg, positions=positions,
+            x, new, a = layer(x, cfg,
                               cache=None if cache is None else cache[i],
-                              cache_pos=cache_pos)
+                              cache_pos=cache_pos, **kw)
             if cache is not None:
                 cache[i] = new
         if a is not None and cache is None:
@@ -218,23 +282,30 @@ def logits_and_value(model: Backbone, cfg: ModelConfig, hidden):
     return logits, value
 
 
-def prefill(model: Backbone, cfg: ModelConfig, tokens, max_len: int):
-    """Build decode caches from a full prompt. Returns
-    (logits_last (B, V), value_last (B,), cache)."""
+def prefill(model: Backbone, cfg: ModelConfig, tokens, max_len: int,
+            **kw):
+    """Build decode caches from a full prompt; ``kw`` goes to ``forward``
+    (positions, mrope_positions, patch_embeds, audio_embeds, enc_out).
+    Returns (logits_last (B, V), value_last (B,), cache)."""
     B, _ = tokens.shape
     cache = init_decode_cache(cfg, B, max_len, device=tokens.device)
-    hidden, cache, _ = forward(model, cfg, tokens, cache=cache)
+    hidden, cache, _ = forward(model, cfg, tokens, cache=cache, **kw)
     logits, value = logits_and_value(model, cfg, hidden[:, -1:])
     return logits[:, 0], value[:, 0], cache
 
 
-def decode_step(model: Backbone, cfg: ModelConfig, token, cache, pos: int):
-    """token: (B, 1) int; pos: position of ``token``. Returns
+def decode_step(model: Backbone, cfg: ModelConfig, token, cache, pos: int,
+                *, mrope_positions=None, audio_embeds=None, enc_out=None):
+    """token: (B, 1) int; pos: position of ``token``; ``mrope_positions``
+    (3, B, 1), ``enc_out`` (B, enc_seq, d) the encoder states the
+    cross-attention reads (or ``audio_embeds`` to encode again). Returns
     (logits (B, V), value (B,), cache), the cache list updated in place."""
     B = token.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.long,
                            device=token.device)
     hidden, cache, _ = forward(model, cfg, token, positions=positions,
+                               mrope_positions=mrope_positions,
+                               audio_embeds=audio_embeds, enc_out=enc_out,
                                cache=cache, cache_pos=pos)
     logits, value = logits_and_value(model, cfg, hidden)
     return logits[:, 0], value[:, 0], cache

@@ -71,6 +71,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def mrope_slots(half: int, sections=(2, 3, 3)) -> torch.Tensor:
+    """The position stream each of the ``half`` frequency slots reads:
+    ``sections`` split the slots in proportion, each bound rounded down
+    as the reference's integer arithmetic does (16 and 40 at Dh 128)."""
+    total = sum(sections)
+    slot = torch.zeros(half, dtype=torch.long)
+    acc = 0
+    for i, s in enumerate(sections[:-1]):
+        acc += int(half * s / total)
+        slot[acc:] = i + 1
+    return slot
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections=(2, 3, 3)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE (``layers.py:64-91``): x (B, S, H, Dh);
+    positions (3, B, S), the temporal, height and width streams; each
+    frequency slot rotated by its own stream's position."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)   # (half,)
+    slot = mrope_slots(half, sections).to(x.device)
+    pos = positions.float().movedim(0, -1)                     # (B, S, 3)
+    ang = pos[..., slot] * freqs                               # (B, S, half)
+    ang = ang[..., None, :]                                    # (B, S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------- MLP
 class MLP(nn.Module):
     """Dense FFN: ``w_in (d, d_ff)``, ``w_out (d_ff, d)`` and, for

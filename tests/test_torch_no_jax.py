@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports ``jax``, ``jaxlib`` or ``repro``; every module
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and no ``examples/torch_*.py`` imports ``jax``,
+``jaxlib`` or ``repro``; every module
 imports with jax made unimportable; entry points refuse to fall back to
 the CPU when CUDA is absent and the caller did not ask for ``cpu``."""
 import ast
@@ -17,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _modules():

@@ -225,16 +225,18 @@ def test_env_state_bridge_continues_the_episode():
 
 
 def test_env_registry():
-    assert envs.env_names() == ["catch", "catch_device", "gridmaze",
-                                "gridmaze_device", "token", "token_stream"]
+    assert envs.env_names() == ["catch", "catch_device", "football",
+                                "gridmaze", "gridmaze_device", "token",
+                                "token_stream"]
     assert envs.get_env("catch").obs_shape == (10, 5, 1)
     assert envs.get_env("catch_device").host_name == "catch"
+    assert envs.get_env("football").obs_shape == (12,)
     assert tdevice.has_device_port("catch")
     assert not tdevice.has_device_port("football")
     with pytest.raises(KeyError, match="registered: \\['catch', "
-                       "'catch_device', 'gridmaze', 'gridmaze_device', "
-                       "'token', 'token_stream'\\]"):
-        envs.get_env("football")
+                       "'catch_device', 'football', 'gridmaze', "
+                       "'gridmaze_device', 'token', 'token_stream'\\]"):
+        envs.get_env("pong")
     with pytest.raises(ValueError, match="no device-resident port"):
         tdevice.get_device_env("football")
 

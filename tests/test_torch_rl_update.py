@@ -144,13 +144,15 @@ def test_policy_registry():
     te = envs.get_env("catch")
     assert models.policy_names() == ["backbone", "cnn", "mlp", "token"]
     # the LLM policy: flat params, no per-step apply (the stream
-    # runtime's learner consumes it); what the port's backbone lacks
-    # raises naming its ROADMAP item
+    # runtime's learner consumes it); every registered arch builds, the
+    # encoder-decoder with its encoder and cross-attention
     pol = models.get_policy("backbone", te, arch="rwkv6-7b", reduced=True)
     assert pol.apply is None and pol.config.n_layers == 2
     assert "layers.1.mixer.u" in pol.init(tdet.master_key(0))
-    with pytest.raises(NotImplementedError, match="queue 1, item 7b"):
-        models.get_policy("backbone", te, reduced=True, mrope=True)
+    pol = models.get_policy("backbone", te, arch="whisper-medium",
+                            reduced=True)
+    assert {"encoder.layers.1.mixer.wq", "layers.1.xattn.wo"} <= set(
+        pol.init(tdet.master_key(0)))
     with pytest.raises(KeyError, match="registered"):
         models.get_policy("transformer", te)
     # the mlp flattens image observations
