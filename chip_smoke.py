@@ -199,7 +199,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    and one StarCoder2-3B first step at full width and depth through each
    route with its peak memory; (h) ``launch.train --arch h2o-danube-3-4b
    --steps 3`` with Adam at full depth (its peak, or the out-of-memory);
-   (i) ``examples/torch_llm_policy_hts.py --intervals 4``.
+   (i) ``examples/torch_llm_policy_hts.py --intervals 4``;
+11. the dry run (``phase_dryrun``): (a) ``python -m
+   repro_torch.launch.dryrun`` for StarCoder2-3B train_4k and RWKV-6-7B
+   decode_32k on the fake 256-rank pod world, each ``[OK]`` with its
+   per-rank peak, ``fits_80g`` and bottleneck; (b) the world-1 dry run
+   of (b)'s StarCoder2-3B step (30 layers, 4 x 512, Adam, bf16, kernels
+   on) against one real step on the card: FLOPs within 0.1 % of
+   ``op_cost``'s count of it, the predicted peak within 10 % of its
+   ``max_memory_allocated``, the roofline's three terms beside the
+   measured ms per step, and the MFU (``model_flops_for`` over ms x
+   peak); (c) the stream runtime on a live 1-rank nccl mesh (2 steps,
+   full width, 2 layers, the flash kernel under ``local_map``), its
+   params ``torch.equal`` to the no-mesh run.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Needs CUDA; imports nothing of jax.
@@ -3579,6 +3591,242 @@ def phase_llm_train() -> dict:
     return res
 
 
+# ------------------------------------------------------- phase_dryrun
+# (a): the dry run's own CLI cases on the fake 256-rank pod world
+DRYRUN_CASES = (("starcoder2-3b", "train_4k"), ("rwkv6-7b", "decode_32k"))
+# (b): the step phase_llm_train times, predicted at world 1
+DRYRUN_PEAK_TOL, DRYRUN_FLOPS_TOL = 0.10, 1e-3
+# (c): the stream runtime on a live 1-rank mesh: StarCoder2-3B at full
+# width, depth cut
+MESH_LAYERS, MESH_STEPS = 2, 2
+
+
+def _dryrun_cli(arch: str, shape: str, out: Path):
+    """``python -m repro_torch.launch.dryrun --arch <arch> --shape <shape>
+    --mesh pod``, started (not waited for)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "pod", "--out", str(out)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _chip_batch(cfg, B: int, S: int, gen) -> dict:
+    """A train batch with ``specs.train_batch_specs``'s keys, on the card."""
+    def ints():
+        return torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device="cuda", dtype=torch.int32)
+
+    def normal():
+        return torch.randn(B, S, generator=gen, device="cuda")
+    return {"tokens": ints(), "actions": ints(), "advantages": normal(),
+            "returns": normal(), "behavior_logprob": normal() - 5.0,
+            "loss_mask": torch.ones(B, S, device="cuda")}
+
+
+def _dryrun_vs_card(smi: str) -> dict:
+    """(b): the world-1 dry run of phase_llm_train's StarCoder2-3B step
+    (30 layers, 4 x 512 tokens, Adam, bf16, kernels on) against one real
+    step on the card: op_cost's FLOPs of the real step, its
+    max_memory_allocated, its ms; the roofline's terms; the MFU."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import delayed_grad, learner
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.launch.specs import ShapeSpec
+    from repro_torch.models import backbone
+    from repro_torch.optim import adam
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline.op_cost import OpCost
+    arch = "starcoder2-3b"
+    shape = ShapeSpec("llm_train", LLM_SEQ, LLM_BATCH, "train")
+    t0 = time.perf_counter()
+    pred = dryrun.lower_one(arch, shape, "host", "adam")
+    pred_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(get_config(arch), use_pallas_attention=True)
+    _free_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = dict(backbone.init_params(cfg, gen, "cuda").named_parameters())
+    opt = adam(1e-4)
+    dg = delayed_grad.init({k: v.detach() for k, v in params.items()}, opt)
+    del params
+    batch = _chip_batch(cfg, LLM_BATCH, LLM_SEQ, gen)
+    step = learner.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with OpCost() as oc:
+        dg, stats = step(dg, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    ms = []
+    for _ in range(LLM_STEPS):
+        a = time.perf_counter()
+        dg, stats = step(dg, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - a) * 1e3)
+    check(np.isfinite(float(stats["loss"])), "dry-run step loss")
+    pf, rf = pred["cost_loop_aware"]["flops"], oc.flops
+    pp = pred["peak_bytes_per_chip"]
+    roof = pred["roofline"]
+    mf = analysis.model_flops_for(cfg, "train", LLM_SEQ, LLM_BATCH)
+    step_ms = float(np.median(ms))
+    mfu = analysis.mfu(mf, step_ms / 1e3)
+    print(f"dryrun (b) {arch} 4 x 512, Adam, bf16, world 1 on {smi}: "
+          f"predicted FLOPs {pf:.6e} vs the card step's op_cost "
+          f"{rf:.6e} (rel {abs(pf - rf) / rf:.2e}); predicted peak "
+          f"{pp / 1e9:.2f} GB vs max_memory_allocated {peak / 1e9:.2f} GB "
+          f"(rel {abs(pp - peak) / peak:.3f}); roofline compute "
+          f"{roof['compute_s'] * 1e3:.2f} ms, memory "
+          f"{roof['memory_s'] * 1e3:.2f} ms, collective "
+          f"{roof['collective_s'] * 1e3:.2f} ms ({roof['bottleneck']}) "
+          f"beside the measured {', '.join(f'{x:.1f}' for x in ms)} ms a "
+          f"step; model FLOPs {mf:.4e}: MFU {mfu * 100:.2f} % of "
+          f"{mesh.PEAK_FLOPS_BF16 / 1e12:.1f} TFLOP/s; flash launches "
+          f"{launches['flash_attention']}; prediction {pred_s:.1f} s")
+    check(abs(pf - rf) <= DRYRUN_FLOPS_TOL * rf,
+          f"dry-run FLOPs {pf} vs the card's {rf}")
+    check(abs(pp - peak) <= DRYRUN_PEAK_TOL * peak,
+          f"dry-run peak {pp} vs the card's {peak}")
+    check(launches["flash_attention"] == LLM_TRAIN[arch],
+          f"flash launches {launches}")
+    del dg, batch
+    _free_cuda()
+    return {"pred_flops": pf, "card_flops": rf, "pred_peak": pp,
+            "card_peak": peak, "step_ms": ms, "mfu": mfu,
+            "model_flops": mf, "roofline": roof, "pred_s": pred_s}
+
+
+def _live_mesh_worker(port: int) -> None:
+    """(c), in its own process: one nccl rank (world 1), the stream
+    runtime with ``mesh="host"`` (a live 1-D data mesh over that world)
+    and with no mesh, StarCoder2-3B at full width and MESH_LAYERS layers;
+    prints the comparison as JSON."""
+    import torch.distributed as dist
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.engine import HTSConfig
+    from repro_torch.core.stream_runtime import StreamRuntime
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import backbone
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    torch.cuda.set_device(0)
+    cfg = dataclasses.replace(get_config("starcoder2-3b"),
+                              n_layers=MESH_LAYERS, use_pallas_attention=True)
+    params = dict(backbone.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0),
+        "cuda").named_parameters())
+    out = {}
+    for mesh in (None, "host"):
+        zero_launches()
+        rt = StreamRuntime(
+            lambda: TokenStream(cfg.vocab_size, LLM_BATCH, LLM_SEQ, 0,
+                                device="cuda"),
+            params, optim.get_optimizer("adam", lr=1e-4), HTSConfig(), cfg,
+            mesh=mesh, device="cuda")
+        res = rt.run(MESH_STEPS)
+        whole = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+                 for k, v in res.params.items()}
+        out[str(mesh)] = {"params": {k: v.cpu() for k, v in whole.items()},
+                          "loss": res.metrics["loss"].tolist(),
+                          "launches": read_launches(),
+                          "mesh": str(rt.mesh),
+                          "type": type(next(iter(res.params.values())))
+                          .__name__}
+        del rt, res, whole
+        _free_cuda()
+    a, b = out["None"], out["host"]
+    equal = all(torch.equal(a["params"][k], b["params"][k])
+                for k in a["params"])
+    worst = max((a["params"][k].float() - b["params"][k].float()).abs()
+                .max().item() for k in a["params"])
+    print("MESH " + json.dumps({
+        "equal": equal, "max_abs": worst, "loss_none": a["loss"],
+        "loss_mesh": b["loss"], "launches_none": a["launches"],
+        "launches_mesh": b["launches"], "mesh": b["mesh"],
+        "types": [a["type"], b["type"]]}))
+    dist.destroy_process_group()
+
+
+def _live_mesh(smi: str) -> dict:
+    """(c): ``_live_mesh_worker`` in a process of its own."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import chip_smoke as c; c._live_mesh_worker({_free_port()})"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    line = [x for x in proc.stdout.splitlines() if x.startswith("MESH ")]
+    check(proc.returncode == 0 and line,
+          f"live mesh worker: {proc.stderr[-3000:]}")
+    mesh = json.loads(line[-1][len("MESH "):])
+    print(f"dryrun (c) stream runtime, StarCoder2-3B full width, "
+          f"{MESH_LAYERS} layers, {MESH_STEPS} steps on {smi}: a live "
+          f"1-rank mesh ({mesh['mesh']}, nccl; params {mesh['types'][1]}) "
+          f"vs no mesh: torch.equal {mesh['equal']} (max |diff| "
+          f"{mesh['max_abs']}), losses {mesh['loss_mesh']} vs "
+          f"{mesh['loss_none']}, flash launches {mesh['launches_mesh']} vs "
+          f"{mesh['launches_none']}")
+    check(mesh["equal"], "live 1-rank mesh params differ from no mesh")
+    check(mesh["types"] == ["Tensor", "DTensor"], f"types {mesh['types']}")
+    check(mesh["launches_mesh"]["flash_attention"] > 0
+          and mesh["launches_mesh"] == mesh["launches_none"],
+          "flash under local_map")
+    return mesh
+
+
+def _pod_result(arch: str, shape: str, proc, started: float, out_dir: Path,
+                smi: str) -> dict:
+    """(a): one dry-run CLI process's ``[OK]`` line and artifact."""
+    stdout, stderr = proc.communicate(timeout=900)
+    secs = time.perf_counter() - started
+    lines = [x for x in stdout.splitlines() if x.startswith("[")]
+    check(proc.returncode == 0 and lines and lines[0].startswith("[OK]"),
+          f"dry run {arch} {shape}: {stdout[-2000:]} {stderr[-3000:]}")
+    art = json.loads((out_dir / f"{arch}__{shape}__pod.json").read_text())
+    print(f"dryrun (a) {lines[0]} | peak/chip "
+          f"{art['peak_bytes_per_chip'] / 1e9:.2f} GB, fits_80g "
+          f"{art['fits_80g']}, bottleneck {art['roofline']['bottleneck']}, "
+          f"{secs:.1f} s on this machine's CPU; {smi}")
+    return {"peak": art["peak_bytes_per_chip"], "fits_80g": art["fits_80g"],
+            "bottleneck": art["roofline"]["bottleneck"],
+            "collectives": art["collectives"]["bytes_by_op"], "s": secs}
+
+
+def phase_dryrun() -> dict:
+    """(a) the dry run's CLI on the fake 256-rank world (two cases, in
+    subprocesses started first, run beside (b) and (c)); (b) the world-1
+    prediction against the card; (c) the stream runtime on a live 1-rank
+    mesh. Every part runs; the phase fails after, naming each failure."""
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    out_dir = ROOT / "artifacts" / "dryrun_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {(a, s): (_dryrun_cli(a, s, out_dir), time.perf_counter())
+             for a, s in DRYRUN_CASES}
+    res, failed = {"pod": {}}, []
+    parts = [("vs_card", _dryrun_vs_card, (smi,)),
+             ("live_mesh", _live_mesh, (smi,))]
+    parts += [(f"{a} {s}", _pod_result, (a, s, p, t, out_dir, smi))
+              for (a, s), (p, t) in procs.items()]
+    for name, fn, args in parts:
+        try:
+            out = fn(*args)
+        except Exception as e:      # report every part before failing
+            failed.append(f"{name}: {e}")
+            print(f"dryrun: {name} FAILED: {e}", flush=True)
+            continue
+        if name in ("vs_card", "live_mesh"):
+            res[name] = out
+        else:
+            res["pod"][name] = out
+    print(f"dryrun: phase {time.perf_counter() - t0:.1f} s")
+    print("dryrun: " + json.dumps(res, default=str))
+    check(not failed, "; ".join(failed))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -3603,6 +3851,7 @@ def main() -> int:
     timed("host", phase_host)
     timed("scale", phase_scale)
     llm = timed("llm_train", phase_llm_train)
+    timed("dryrun", phase_dryrun)
 
     smi = nvidia_smi()
     print(f"times on {smi}:")

@@ -95,12 +95,11 @@ def _as_tensor(x, device=None) -> torch.Tensor:
     return to_torch(x, device)
 
 
-def backbone_params_from_jax(tree: dict, cfg: ModelConfig, device=None,
-                             moments: bool = False) -> dict:
-    """The reference's ``backbone.init_params`` tree (numpy or tensor
-    leaves) -> the port's flat ``{name: tensor}`` params on ``device``,
-    in ``Backbone.named_parameters`` order, shapes and dtypes checked
-    (``moments``: a params-shaped optimizer moment, fp32 throughout)."""
+def reference_flat(tree: dict, cfg: ModelConfig) -> dict:
+    """The leaves of a reference backbone tree under the port's parameter
+    names, the stacked layers unstacked (``leaf[b]``), nothing converted:
+    the name mapping alone (leaves may be arrays, tensors, or anything
+    indexable by the block, such as a stacked spec)."""
     state = {"embed": tree["embed"]["table"],
              "lm_head": tree["lm_head"],
              "value_head": tree["value_head"]}
@@ -113,6 +112,16 @@ def backbone_params_from_jax(tree: dict, cfg: ModelConfig, device=None,
             state.update(_flatten(_index(enc["layers"], n),
                                   f"encoder.layers.{n}."))
         state.update(_flatten(enc["final_norm"], "encoder.final_norm."))
+    return state
+
+
+def backbone_params_from_jax(tree: dict, cfg: ModelConfig, device=None,
+                             moments: bool = False) -> dict:
+    """The reference's ``backbone.init_params`` tree (numpy or tensor
+    leaves) -> the port's flat ``{name: tensor}`` params on ``device``,
+    in ``Backbone.named_parameters`` order, shapes and dtypes checked
+    (``moments``: a params-shaped optimizer moment, fp32 throughout)."""
+    state = reference_flat(tree, cfg)
     expected = backbone.Backbone(cfg, device="meta").state_dict()
     if set(state) != set(expected):
         raise ValueError("param trees differ: missing "

@@ -26,8 +26,10 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import delayed_grad, losses
+from repro_torch.kernels import is_dtensor
 from repro_torch.models import backbone, layers
 from repro_torch.optim import Optimizer
+from repro_torch.sharding.constraints import constrain, gather_fsdp
 
 
 @functools.lru_cache(maxsize=8)
@@ -53,8 +55,10 @@ def policy_hidden(params: dict, cfg: ModelConfig, batch, remat: bool = True):
 def _heads(h, lm_head, value_head, cfg: ModelConfig):
     """(logits fp32, values fp32) of hidden states ``h``, as
     ``backbone.logits_and_value``."""
-    logits = layers.softcap((h @ lm_head).float(), cfg.final_softcap)
-    values = (h.float() @ value_head)[..., 0]
+    logits = constrain((h @ gather_fsdp(lm_head)).float(), "batch", None,
+                       "vocab")
+    logits = layers.softcap(logits, cfg.final_softcap)
+    values = (h.float() @ gather_fsdp(value_head))[..., 0]
     return logits, values
 
 
@@ -68,12 +72,24 @@ def policy_outputs(params: dict, cfg: ModelConfig, batch,
     return logits, values, aux
 
 
+def _take(logp, act):
+    """``logp[..., act]``: a gather, or on a ``DTensor`` (whose gather
+    would assemble the whole batch's (B, c, V) on every rank) the masked
+    sum over the vocab, split as ``logp`` is. The other entries add exact
+    zeros: the same value."""
+    if not is_dtensor(logp):
+        return torch.gather(logp, -1, act.long()[..., None])[..., 0]
+    ids = torch.arange(logp.shape[-1], device=act.device)
+    return torch.where(ids == act.long()[..., None], logp, 0.0).sum(-1)
+
+
 def _chunk_sums(cfg: ModelConfig, algorithm: str, ppo_clip: float,
                 h, act, adv, ret, blp, m, lm_head, value_head):
     """One sequence chunk's (pg, value, entropy, count) sums."""
+    h = constrain(h, "batch", None, None)
     logits, values = _heads(h, lm_head, value_head, cfg)
     logp = torch.log_softmax(logits, dim=-1)
-    lp = torch.gather(logp, -1, act.long()[..., None])[..., 0]
+    lp = _take(logp, act)
     ent = -torch.sum(torch.exp(logp) * logp, dim=-1)
     adv = adv.float().detach()
     if algorithm == "ppo":
@@ -124,6 +140,7 @@ def rl_loss_parts(params: dict, cfg: ModelConfig, batch,
     """(LossStats, aux) over a (B, S) token batch: the RL loss and the
     MoE load-balance loss apart."""
     hidden, aux = policy_hidden(params, cfg, batch)
+    hidden = constrain(hidden, "batch", None, None)
     st = _chunked_rl_loss(params, cfg, hidden, batch, algorithm,
                           value_coef, entropy_coef, ppo_clip, loss_chunk)
     return st, aux
@@ -224,11 +241,12 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
 
 def make_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
     """(params, batch) -> (logits_last (B, V), value_last (B,), cache),
-    ``params`` the learner's flat dict."""
+    ``params`` the learner's flat dict; ``cache`` (optional) the empty
+    caches to fill, as a sharded caller places them."""
 
-    def prefill_step(params: dict, batch):
+    def prefill_step(params: dict, batch, cache=None):
         return backbone.prefill(backbone.from_params(cfg, params), cfg,
-                                batch["tokens"], max_len,
+                                batch["tokens"], max_len, cache=cache,
                                 **{k: batch.get(k) for k in _EXTRAS})
 
     return prefill_step

@@ -22,9 +22,16 @@ in stays off the device: ``params0`` and every ``state()`` capsule are
 host copies (page-locked when the runtime runs on CUDA), and ``run_from``
 frees the device state before it copies a capsule in.
 
-``mesh``: ``"host"`` (or None) runs on the runtime's one device; the
-reference's ``"pod"`` and ``"multipod"`` meshes are TPU mesh modules,
-not ported (ROADMAP queue 1, item 9).
+``mesh``: ``"pod"`` and ``"multipod"`` build the production mesh over
+the live process group (``launch/mesh.py``; it raises, naming the 256 or
+512 ranks it needs, on any other world); ``"host"`` is a 1-D data mesh
+over the group's world, or no mesh when no process group is up; a live
+``DeviceMesh`` is taken as it is; None is no mesh. With a mesh, the
+delayed-gradient state is placed by ``sharding.rules.dg_state_specs``
+and each batch by ``batch_specs`` as ``DTensor``s, and the step runs
+under ``use_mesh`` (``constrain``) and ``implicit_replication``; the
+stats come back whole, and ``state()`` capsules hold whole tensors.
+Without a mesh nothing of that runs: the same code and the same bits.
 """
 from __future__ import annotations
 
@@ -38,7 +45,10 @@ from repro_torch import resolve_device
 from repro_torch.core import delayed_grad, learner
 from repro_torch.core.engine import HTSConfig, RunResult, TrainState
 from repro_torch.core.tree import tree_map
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
+                                     use_mesh)
 from repro_torch.optim import Optimizer
+from repro_torch.sharding import rules
 
 # algorithms whose loss the token-trajectory learner implements
 # (stale-correction algorithms need behavior-lagged rollouts, which a
@@ -46,11 +56,37 @@ from repro_torch.optim import Optimizer
 _ALGORITHMS = ("a2c", "ppo")
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s whole value on every rank; a tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _host_copy(t: torch.Tensor) -> torch.Tensor:
     """A copy of ``t`` in host memory, page-locked when CUDA is up."""
+    t = _whole(t)
     out = torch.empty(t.shape, dtype=t.dtype, device="cpu",
                       pin_memory=torch.cuda.is_available())
     return out.copy_(t)
+
+
+def _make_mesh(mesh, device: torch.device):
+    """The runtime's ``DeviceMesh`` (or None) for its ``mesh`` argument."""
+    if mesh is None or not isinstance(mesh, str):
+        return mesh
+    if mesh == "host":
+        return make_host_mesh(device.type)
+    return make_production_mesh(multi_pod=(mesh == "multipod"),
+                                device_type=device.type)
+
+
+def _distribute(tree, specs, mesh):
+    """Each leaf of ``tree`` as a ``DTensor`` placed by its spec."""
+    from torch.distributed.tensor import distribute_tensor
+    return rules.map_specs(
+        lambda t, s: distribute_tensor(t.detach(), mesh,
+                                       rules.to_placements(s, mesh)),
+        tree, specs)
 
 
 class StreamRuntime:
@@ -68,13 +104,8 @@ class StreamRuntime:
             raise ValueError(
                 f"the stream runtime is the delay-1 LLM learner; got "
                 f"staleness={cfg.staleness}")
-        if mesh in ("pod", "multipod"):
-            raise NotImplementedError(
-                f"mesh {mesh!r} is a TPU production mesh "
-                "(repro/launch/mesh.py), not ported to repro_torch: "
-                "ROADMAP queue 1, item 9; the port's stream runtime runs on "
-                "one device (mesh 'host')")
-        if mesh not in (None, "host"):
+        if isinstance(mesh, str) and mesh not in ("host", "pod",
+                                                  "multipod"):
             raise ValueError(f"unknown mesh name {mesh!r}; known: "
                              f"['host', 'pod', 'multipod']")
         self.device = resolve_device(device)
@@ -83,7 +114,7 @@ class StreamRuntime:
         self.opt = opt
         self.cfg = cfg
         self.model_config = model_config
-        self.mesh = "host"
+        self.mesh = _make_mesh(mesh, self.device)
         self.batch = batch
         self.n_microbatches = n_microbatches
         self._step = None
@@ -104,10 +135,19 @@ class StreamRuntime:
     def _to_device(self, tree):
         return tree_map(lambda t: t.to(self.device, copy=True), tree)
 
+    def _placed_state(self, dg):
+        """``dg`` on the device; with a mesh, placed by the rules."""
+        if self.mesh is None:
+            return dg
+        pspecs = rules.param_specs(dg.params, self.mesh)
+        return _distribute(dg, rules.dg_state_specs(dg, pspecs, self.mesh),
+                           self.mesh)
+
     def init(self) -> None:
         self._build()
         self.dg = None      # free the device state before making another
-        self.dg = delayed_grad.init(self._to_device(self.params0), self.opt)
+        self.dg = self._placed_state(
+            delayed_grad.init(self._to_device(self.params0), self.opt))
         self.stream = self.stream_factory().skip(1)   # past the probe
         self.j = 0
 
@@ -129,8 +169,8 @@ class StreamRuntime:
         del finalize   # updates are consumed inline; nothing trails
         self._build()
         self.dg = None
-        self.dg = delayed_grad.DelayedGradState(
-            *self._to_device(tuple(state.algo)))
+        self.dg = self._placed_state(delayed_grad.DelayedGradState(
+            *self._to_device(tuple(state.algo))))
         self.j = int(state.interval)
         self.stream = self.stream_factory().skip(1 + self.j)
         return self._segment(n_intervals)
@@ -151,6 +191,16 @@ class StreamRuntime:
             env_state={}, obs={}, buffer={},
             interval=torch.as_tensor(np.asarray(interval), dtype=torch.int32))
 
+    def _mesh_step(self, batch: dict):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        batch = _distribute(batch, rules.batch_specs(batch, self.mesh),
+                            self.mesh)
+        with use_mesh(self.mesh), implicit_replication():
+            dg, stats = self._step(self.dg, batch)
+            stats = {k: _whole(v) for k, v in stats.items()}
+        return dg, stats
+
     # -------------------------------------------------------- the loop
     def _segment(self, n_intervals: int) -> RunResult:
         t0 = time.perf_counter()
@@ -158,7 +208,10 @@ class StreamRuntime:
         for j in range(self.j, self.j + n_intervals):
             batch = {k: v.to(self.device)
                      for k, v in self.stream.next_batch().items()}
-            self.dg, stats = self._step(self.dg, batch)
+            if self.mesh is None:
+                self.dg, stats = self._step(self.dg, batch)
+            else:
+                self.dg, stats = self._mesh_step(batch)
             stats_log.append(stats)
             if self.on_interval is not None:
                 self.on_interval(j, {k: float(v) for k, v in stats.items()})

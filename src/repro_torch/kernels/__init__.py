@@ -21,6 +21,17 @@ the reference's: the VJP of the plain version on the saved inputs for
 flash attention and wkv6, the same kernel run on reversed time for
 lru_scan. The CPU route differentiates through the plain version.
 
+Two more routes, neither of which launches anything on a CPU tensor or
+hides the card. A ``FakeTensor`` (the dry run's shape propagation,
+``launch/dryrun.py``) takes the binding's fake branch: the kernel's
+outputs are allocated with the shapes and dtypes it writes, and nothing
+is launched or counted. A ``DTensor`` takes ``per_shard``, which runs
+the wrapper on each rank's local shards through ``local_map`` (batch on
+the data axes, heads or channels on ``model``), so a local CUDA shard
+still takes the kernel. ``notify`` tells a cost counter
+(``roofline/op_cost.py``) of each kernel call, real or fake, with its
+FLOPs: a ctypes launch is invisible to a dispatch mode.
+
 Kernels are built at first use by ``nvcc`` into a shared library with a
 plain C interface (no PyTorch headers), keyed on a hash of the sources
 and flags, under ``build/repro_torch_kernels/`` at the root of the checkout.
@@ -47,12 +58,102 @@ _LOCK = threading.Lock()
 
 
 def use_kernel_for(x: torch.Tensor, use_kernel: bool) -> bool:
-    """True when ``x`` must go through the hand-written kernel."""
+    """True when ``x`` must go through the hand-written kernel. A
+    ``FakeTensor`` on any device takes the kernel's fake route (shapes
+    only: nothing runs)."""
+    if is_fake(x):
+        return use_kernel
     if x.device.type == "cpu":
         return False
     if x.device.type == "cuda":
         return use_kernel
     raise ValueError(f"no kernel route for device {x.device}")
+
+
+def is_fake(x) -> bool:
+    """True for a ``FakeTensor``: shapes only, no storage to launch on."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(x, FakeTensor)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+# cost counters listening to kernel calls (``roofline.op_cost.OpCost``)
+LISTENERS: list = []
+
+
+def notify(name: str, inputs, outputs, flops: float,
+           transcendentals: float = 0.0) -> None:
+    """Report one kernel call (real or fake) to the active listeners."""
+    for listener in LISTENERS:
+        listener(name, [t for t in inputs if t is not None], list(outputs),
+                 flops, transcendentals)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a
+    ``DTensor`` built from a local gradient claims contiguous strides
+    whatever the local tensor's are (a plain version's VJP may return a
+    transposed one), and a later view of it would fail."""
+
+    @staticmethod
+    def forward(x):
+        return x
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def per_shard(fn, args, specs, out_specs):
+    """``fn`` on each rank's shards of the ``DTensor`` arguments: the
+    ``local_map`` of ``fn`` with each argument redistributed to its spec
+    (``sharding.rules.P``; ``None`` for a non-tensor argument) and the
+    outputs assembled under ``out_specs``. The mesh is the first
+    ``DTensor`` argument's."""
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.sharding.rules import to_placements
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    # absent (None) arguments stay out of local_map's flattening
+    keep = [i for i, a in enumerate(args) if a is not None]
+
+    def local(*present):
+        full = [None] * len(args)
+        for i, a in zip(keep, present):
+            full[i] = (_ContiguousGrad.apply(a)
+                       if isinstance(a, torch.Tensor) and a.requires_grad
+                       else a)
+        return fn(*full)
+
+    in_pl = tuple(None if specs[i] is None
+                  else to_placements(specs[i], mesh) for i in keep)
+    out_pl = tuple(to_placements(s, mesh) for s in out_specs)
+    if len(out_pl) == 1:
+        # one output: its placements as a list (a tuple means outputs)
+        out_pl = list(out_pl[0])
+    return local_map(local, out_placements=out_pl, in_placements=in_pl,
+                     device_mesh=mesh, redistribute_inputs=True)(
+        *(args[i] for i in keep))
+
+
+def split_axes(x, batch: int, *counts):
+    """(the batch dim's data axes or None, ``"model"`` or None) for a
+    kernel call on ``x``'s mesh: ``model`` splits the heads (channels)
+    only when it divides every count in ``counts``, so each shard holds
+    whole heads and whole GQA groups."""
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.sharding.rules import batch_pspec
+    mesh = x.device_mesh
+    m = axis_sizes(mesh).get("model")
+    model = "model" if m and all(c % m == 0 for c in counts) else None
+    return batch_pspec(mesh, batch), model
 
 
 def vmap_by_folding(apply, info, in_dims, args, batched):

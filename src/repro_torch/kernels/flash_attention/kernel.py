@@ -10,7 +10,8 @@ own layout, strided, and take any sequence length, so nothing is padded,
 transposed or copied here. This wrapper checks what the kernel takes,
 allocates the output, launches on PyTorch's current stream and raises if
 the launch is refused. It takes CUDA tensors only: the CPU goes through
-``ref.py`` (see ``ops.attend``).
+``ref.py`` (see ``ops.attend``). A ``FakeTensor`` (the dry run) is
+checked the same way and gets its output allocated, with no launch.
 
 ``launches`` counts the kernel's launches in this process; callers that
 want to show a path went through the kernel set it to 0 and read it.
@@ -52,9 +53,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (fp32 with Dh <= 256, or bf16 with Dh in ``BF16_HEAD_DIMS``), the head
     dimension contiguous, other strides free (bf16: 16-byte aligned, as
     TMA needs). Returns a contiguous (B, Sq, H, Dh) in that dtype."""
-    global launches
+    fake = kernels.is_fake(q)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
+        if (t.device.type != "cuda" and not fake):
             raise ValueError(f"flash_attention kernel: {name} is on "
                              f"{t.device}; the kernel takes CUDA tensors "
                              "(CPU tensors go through ops.attend)")
@@ -80,12 +81,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             raise ValueError(f"flash_attention kernel: bf16 head dim {Dh} "
                              f"not in {BF16_HEAD_DIMS}")
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(s * 2 % 16 for s in t.stride()[:3]):
+            if (not fake and t.data_ptr() % 16) or any(
+                    s * 2 % 16 for s in t.stride()[:3]):
                 raise ValueError(f"flash_attention kernel: bf16 {name} needs "
                                  "a 16-byte aligned base and strides (TMA), "
                                  f"got strides {t.stride()}")
-    lib = library()
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if not fake:
+        _launch(q, k, v, o, causal, window, cap, kv_len)
+    kernels.notify("flash_attention", (q, k, v), (o,),
+                   flops=4.0 * B * H * Sq * Sk * Dh,
+                   transcendentals=B * H * Sq * Sk)
+    return o
+
+
+def _launch(q, k, v, o, causal, window, cap, kv_len) -> None:
+    global launches
+    B, Sq, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    lib = library()
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3]))
     with torch.cuda.device(q.device):
@@ -100,4 +114,3 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                            f"{lib.repro_cuda_error_string(err).decode()} "
                            f"(cudaError_t {err})")
     launches += 1
-    return o

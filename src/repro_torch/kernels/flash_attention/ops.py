@@ -22,7 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import use_kernel_for, vmap_by_folding
+from repro_torch.kernels import (is_dtensor, per_shard, split_axes,
+                                 use_kernel_for, vmap_by_folding)
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -84,7 +85,18 @@ class FlashAttention(torch.autograd.Function):
 def attend(q, k, v, *, causal: bool = True, window: int = 0,
            cap: float = 0.0, bq: int = 128, bk: int = 128,
            use_kernel: bool = True):
-    """q: (B, S, H, Dh); k, v: (B, S, KV, Dh) -> (B, S, H, Dh)."""
+    """q: (B, S, H, Dh); k, v: (B, S, KV, Dh) -> (B, S, H, Dh). A
+    ``DTensor`` runs per shard: batch on the data axes, whole heads on
+    ``model`` when it divides H and KV, else every head on each rank."""
+    if is_dtensor(q):
+        from repro_torch.sharding.rules import P
+        b, m = split_axes(q, q.shape[0], q.shape[2], k.shape[2])
+        spec = P(b, None, m)
+        return per_shard(
+            lambda q_, k_, v_: attend(q_, k_, v_, causal=causal,
+                                      window=window, cap=cap, bq=bq, bk=bk,
+                                      use_kernel=use_kernel),
+            (q, k, v), (spec,) * 3, (spec,))
     if use_kernel_for(q, use_kernel):
         return FlashAttention.apply(q, k, v, causal, window, cap, bq, bk)
     return attend_plain(q, k, v, causal, window, cap, bq, bk)

@@ -10,6 +10,9 @@ takes, allocates the outputs, launches on PyTorch's current stream and
 raises if the launch is refused. It takes CUDA tensors only: the CPU goes
 through ``ref.py`` (see ``ops.scan``).
 
+A ``FakeTensor`` (the dry run) is checked the same way and gets its
+outputs allocated, with no launch.
+
 ``launches`` counts the kernel's launches in this process, and
 ``tma_launches`` those of them that took the TMA kernel; callers that want
 to show a path went through the kernel set both to 0 and read them.
@@ -59,13 +62,13 @@ def lru_scan(a, b, h0=None, *, tma=None):
     = y[:, -1] widened). ``tma`` forces the kernel (True: the TMA kernel,
     which refuses operands ``use_tma`` would not give it; False: the
     per-thread kernel); None leaves the choice to ``use_tma``."""
-    global launches, tma_launches
+    fake = kernels.is_fake(a)
     if h0 is not None:
         h0 = h0.to(torch.float32).contiguous()
     for name, t in (("a", a), ("b", b), ("h0", h0)):
         if t is None:
             continue
-        if t.device.type != "cuda" or t.device != a.device:
+        if (t.device.type != "cuda" and not fake) or t.device != a.device:
             raise ValueError(f"lru_scan kernel: {name} is on {t.device}; the "
                              "kernel takes CUDA tensors on one device (CPU "
                              "tensors go through ops.scan)")
@@ -81,6 +84,13 @@ def lru_scan(a, b, h0=None, *, tma=None):
     if h0 is not None and h0.shape != (B, D):
         raise ValueError(f"lru_scan kernel: h0 {tuple(h0.shape)} is not "
                          f"(B, D) = {(B, D)}")
+    if fake:
+        y = torch.empty_like(a)
+        h_last = torch.empty((B, D), dtype=torch.float32, device=a.device)
+        kernels.notify("lru_scan", (a, b, h0), (y, h_last),
+                       flops=2.0 * B * S * D)
+        return y, h_last
+    global launches, tma_launches
     tma_ok = use_tma(a.dtype, b.dtype, D, a.data_ptr(), b.data_ptr())
     if tma is None:
         tma = tma_ok
@@ -103,4 +113,5 @@ def lru_scan(a, b, h0=None, *, tma=None):
                            f"(code {err})")
     launches += 1
     tma_launches += int(tma)
+    kernels.notify("lru_scan", (a, b, h0), (y, h_last), flops=2.0 * B * S * D)
     return y, h_last

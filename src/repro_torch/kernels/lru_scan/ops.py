@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import use_kernel_for, vmap_by_folding
+from repro_torch.kernels import (is_dtensor, per_shard, split_axes,
+                                 use_kernel_for, vmap_by_folding)
 from repro_torch.kernels.lru_scan import kernel
 from repro_torch.kernels.lru_scan.ref import lru_scan_ref
 
@@ -68,7 +69,14 @@ class LruScan(torch.autograd.Function):
 
 def scan(a, b, h0=None, *, use_kernel: bool = True):
     """a, b: (B, S, D); h0: (B, D) or None -> (y (B, S, D) in a.dtype,
-    h_last (B, D) fp32)."""
+    h_last (B, D) fp32). A ``DTensor`` runs per shard: batch on the
+    data axes, channels on ``model``."""
+    if is_dtensor(a):
+        from repro_torch.sharding.rules import P
+        bt, m = split_axes(a, a.shape[0], a.shape[2])
+        seq, row = P(bt, None, m), P(bt, m)
+        return per_shard(lambda *x: scan(*x, use_kernel=use_kernel),
+                         (a, b, h0), (seq, seq, row), (seq, row))
     if use_kernel_for(a, use_kernel):
         return LruScan.apply(a, b, h0)
     return lru_scan_ref(a, b, h0)

@@ -10,6 +10,9 @@ takes, allocates the outputs, launches on PyTorch's current stream and
 raises if the launch is refused. It takes CUDA tensors only: the CPU goes
 through ``ref.py`` (see ``ops.mix``).
 
+A ``FakeTensor`` (the dry run) is checked the same way and gets its
+outputs allocated, with no launch.
+
 ``launches`` counts the kernel's launches in this process; callers that
 want to show a path went through the kernel set it to 0 and read it.
 """
@@ -62,7 +65,7 @@ def wkv6(r, k, v, w, u, s0=None):
     bf16); w: (B, T, H, N), u: (H, N), s0: (B, H, N, N) or None, taken in
     fp32. N in ``HEAD_SIZES``. Returns (o (B, T, H, N) in r.dtype, s_T
     (B, H, N, N) fp32)."""
-    global launches
+    fake = kernels.is_fake(r)
     w, u = w.to(torch.float32).contiguous(), u.to(torch.float32).contiguous()
     if s0 is not None:
         s0 = s0.to(torch.float32).contiguous()
@@ -70,11 +73,11 @@ def wkv6(r, k, v, w, u, s0=None):
                     ("s0", s0)):
         if t is None:
             continue
-        if t.device.type != "cuda" or t.device != r.device:
+        if (t.device.type != "cuda" and not fake) or t.device != r.device:
             raise ValueError(f"wkv6 kernel: {name} is on {t.device}; the "
                              "kernel takes CUDA tensors on one device (CPU "
                              "tensors go through ops.mix)")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or (not fake and t.data_ptr() % 16):
             raise ValueError(f"wkv6 kernel: {name} must be contiguous and "
                              "16-byte aligned (cp.async)")
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
@@ -94,9 +97,20 @@ def wkv6(r, k, v, w, u, s0=None):
                          f"{None if s0 is None else tuple(s0.shape)} rejected")
     if N not in HEAD_SIZES:
         raise ValueError(f"wkv6 kernel: head size {N} not in {HEAD_SIZES}")
-    lib = library()
     o = torch.empty_like(r)
     s_T = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    if not fake:
+        _launch(r, k, v, w, u, s0, o, s_T)
+    # per (b, t, h): k^T v, u (.) kv, S + that, r @ it, w (.) S + kv
+    kernels.notify("wkv6", (r, k, v, w, u, s0), (o, s_T),
+                   flops=7.0 * B * T * H * N * N)
+    return o, s_T
+
+
+def _launch(r, k, v, w, u, s0, o, s_T) -> None:
+    global launches
+    B, T, H, N = r.shape
+    lib = library()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.repro_wkv6_fwd(
@@ -109,4 +123,3 @@ def wkv6(r, k, v, w, u, s0=None):
                            f"{lib.repro_cuda_error_string(err).decode()} "
                            f"(cudaError_t {err})")
     launches += 1
-    return o, s_T

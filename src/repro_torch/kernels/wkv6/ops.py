@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import use_kernel_for, vmap_by_folding
+from repro_torch.kernels import (is_dtensor, per_shard, split_axes,
+                                 use_kernel_for, vmap_by_folding)
 from repro_torch.kernels.wkv6 import kernel
 from repro_torch.kernels.wkv6.ref import wkv6_ref, wkv6_ref_vjp
 
@@ -54,7 +55,16 @@ class Wkv6(torch.autograd.Function):
 
 def mix(r, k, v, w, u, s0=None, *, use_kernel: bool = True):
     """r, k, v, w: (B, T, H, N); u: (H, N); s0: (B, H, N, N) or None ->
-    (o (B, T, H, N) in r.dtype, s_T (B, H, N, N) fp32)."""
+    (o (B, T, H, N) in r.dtype, s_T (B, H, N, N) fp32). A ``DTensor``
+    runs per shard: batch on the data axes, heads on ``model``."""
+    if is_dtensor(r):
+        from repro_torch.sharding.rules import P
+        b, m = split_axes(r, r.shape[0], r.shape[2])
+        seq, state = P(b, None, m), P(b, m)
+        return per_shard(
+            lambda *a: mix(*a, use_kernel=use_kernel),
+            (r, k, v, w, u, s0), (seq, seq, seq, seq, P(m), state),
+            (seq, state))
     if use_kernel_for(r, use_kernel):
         return Wkv6.apply(r, k, v, w, u, s0)
     return wkv6_ref(r, k, v, w, u, s0)

@@ -22,8 +22,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
+from repro_torch.kernels import is_dtensor, per_shard, split_axes
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers
+from repro_torch.sharding.rules import P
 
 NEG_INF = -1e30
 
@@ -54,7 +56,11 @@ class Attention(nn.Module):
     def _proj(x, w):
         # einsum("bsd,dhk->bshk"): one (B*S, d) x (d, H*Dh) product
         d, h, k = w.shape
-        return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+        if is_dtensor(w):
+            w2 = _MergeHeads.apply(_whole_dim(w, 2))
+        else:
+            w2 = w.reshape(d, h * k)
+        return _heads_split(x @ w2, h).unflatten(-1, (h, k))
 
     def forward(self, x, cfg: ModelConfig, *, mixer_kind: str,
                 positions=None, mrope_positions=None, causal: bool = True,
@@ -102,8 +108,8 @@ class Attention(nn.Module):
             W = cache["k"].shape[1]
             ring = bool(window) and W == window
             slot = cache_pos % W if ring else cache_pos
-            cache["k"][:, slot] = k[:, 0]
-            cache["v"][:, slot] = v[:, 0]
+            _write_slot(cache["k"], slot, k[:, 0])
+            _write_slot(cache["v"], slot, v[:, 0])
             out = decode_attention(
                 q, cache["k"], cache["v"],
                 pos=min(cache_pos, W - 1) if ring else cache_pos,
@@ -118,24 +124,105 @@ class Attention(nn.Module):
                     # last W entries land at slots (abs_pos % W): a roll
                     cache["k"].copy_(torch.roll(k[:, -W:], S % W, dims=1))
                     cache["v"].copy_(torch.roll(v[:, -W:], S % W, dims=1))
+                elif is_dtensor(cache["k"]) and S == W:
+                    cache["k"].copy_(k)
+                    cache["v"].copy_(v)
                 else:
                     cache["k"][:, :S] = k
                     cache["v"][:, :S] = v
-        wo = self.wo
+        wo = _whole_dim(self.wo, 1)
         y = out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
         return y, cache
+
+
+def _whole_dim(w, dim: int):
+    """``w`` with dim ``dim`` unsplit: a ``DTensor`` split there is
+    gathered on those mesh dims (a merged (H*Dh) dim can carry a split of
+    its outer factor only); anything else as it is."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+          for p in w.placements]
+    return w if pl == list(w.placements) else w.redistribute(w.device_mesh,
+                                                             pl)
+
+
+class _MergeHeads(torch.autograd.Function):
+    """``w.reshape(d, h * Dh)`` of a ``DTensor`` weight, whose gradient is
+    split back into (h, Dh) through ``_heads_split``: the product's
+    backward may split the merged dim where h does not divide."""
+
+    @staticmethod
+    def forward(ctx, w):
+        d, h, k = w.shape
+        ctx.h = h
+        return w.reshape(d, h * k)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _heads_split(g, ctx.h).unflatten(-1, (ctx.h, -1))
+
+
+def _heads_split(y, h: int, dim: int = -1):
+    """``y`` ready to split its dim ``dim`` into (h, rest): a ``DTensor``
+    split there by a mesh dim that does not divide ``h`` is gathered on
+    that mesh dim; anything else as it is."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, dim = y.device_mesh, dim % y.dim()
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim
+          and h % mesh.size(i) else p for i, p in enumerate(y.placements)]
+    return y if pl == list(y.placements) else y.redistribute(mesh, pl)
+
+
+def _write_slot(buf, slot: int, value) -> None:
+    """``buf[:, slot] = value`` in place. On a ``DTensor`` cache, whose
+    sequence dim may be sharded, each rank writes its own shard when the
+    slot falls in it (the reference's ``dynamic_update_slice`` under
+    GSPMD)."""
+    if not is_dtensor(buf):
+        buf[:, slot] = value
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = buf.device_mesh
+    coord = mesh.get_coordinate()
+    # this rank's slice of the sequence dim (split in mesh-dim order)
+    size, start = buf.shape[1], 0
+    for i, p in enumerate(buf.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            size //= mesh.size(i)
+            start += coord[i] * size
+    # value (B, KV, Dh) is buf without dim 1: split as buf splits
+    pl = tuple(Replicate() if not isinstance(p, Shard) or p.dim == 1
+               else Shard(p.dim - (p.dim > 1)) for p in buf.placements)
+    local = value.redistribute(mesh, pl).to_local() \
+        if is_dtensor(value) else value
+    if start <= slot < start + size:
+        buf.to_local()[:, slot - start] = local
 
 
 def full_attention(q, k, v, cfg: ModelConfig, *, causal: bool,
                    window: int):
     """Full-sequence attention, routed as the reference routes it: the
     kernel (``ops.attend``) when ``cfg.use_pallas_attention``, else
-    ``blocked_attention``."""
+    ``blocked_attention``; ``cfg.attn_tp_repeat`` repeats k and v to the
+    query heads first, ``cfg.attn_replicate_tp`` keeps every head on each
+    rank of the ``model`` axis (``attention.py:395-409``)."""
+    if cfg.attn_tp_repeat:
+        # the GQA repeat materialized for the compute path only (caches
+        # keep KV heads), so attention splits by heads on ``model``
+        R = cfg.n_heads // cfg.n_kv_heads
+        if R > 1 and k.shape[2] != cfg.n_heads:
+            k = k.repeat_interleave(R, dim=2)
+            v = v.repeat_interleave(R, dim=2)
     if cfg.use_pallas_attention:
         return fa_ops.attend(q, k, v, causal=causal, window=window,
                              cap=cfg.attn_softcap)
-    return blocked_attention(q, k, v, causal=causal, window=window,
-                             cap=cfg.attn_softcap)
+    return blocked_attention(
+        q, k, v, causal=causal, window=window, cap=cfg.attn_softcap,
+        tp_mode="replicate" if cfg.attn_replicate_tp else "auto")
 
 
 # ------------------------------------------------- blocked attention
@@ -299,14 +386,30 @@ class _BlockedFlash(torch.autograd.Function):
 def blocked_attention(q, k, v, *, causal: bool = True, window: int = 0,
                       cap: float = 0.0, q_offset: int = 0,
                       q_block: int = 512, k_block: int = 1024,
-                      kv_len=None):
+                      kv_len=None, tp_mode: str = "auto"):
     """Flash-style blocked attention with a flash backward
     (``attention.py:288-337``).
 
     q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh). GQA by grouping query
     heads (no materialized KV repeat). Returns (B, Sq, H, Dh). window > 0
     masks keys ``window`` or more positions behind the query; ``kv_len``
-    (an int) masks keys at positions >= kv_len."""
+    (an int) masks keys at positions >= kv_len.
+
+    ``DTensor`` inputs run per shard, the reference's constraint on the
+    tiles (``attention.py:319-327``): batch on the data axes and, with
+    ``tp_mode="auto"``, whole KV groups on ``model`` when it divides KV;
+    otherwise (or with ``"replicate"``) every head on each rank. The
+    reference's head_dim fallback, which all-reduces each score tile, is
+    not taken: the heads are gathered instead."""
+    if is_dtensor(q):
+        b, m = split_axes(q, q.shape[0], q.shape[2], k.shape[2])
+        spec = P(b, None, None if tp_mode == "replicate" else m)
+        return per_shard(
+            lambda q_, k_, v_: blocked_attention(
+                q_, k_, v_, causal=causal, window=window, cap=cap,
+                q_offset=q_offset, q_block=q_block, k_block=k_block,
+                kv_len=kv_len),
+            (q, k, v), (spec,) * 3, (spec,))
     B, Sq, H, Dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G, R = KV, H // KV
@@ -337,7 +440,7 @@ def decode_attention(q, k_cache, v_cache, *, pos: int, window: int = 0,
     B, _, H, Dh = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     R = H // KV
-    qg = q.reshape(B, KV, R, Dh)
+    qg = _heads_split(q, KV, 2).reshape(B, KV, R, Dh)
     s = torch.einsum("bgrd,bkgd->bgrk", qg.float(),
                      k_cache.float()) * Dh ** -0.5
     if cap:

@@ -41,7 +41,10 @@ from torch import nn
 
 from repro_torch.configs.base import (ATTN_FULL, ATTN_LOCAL, FFN_DENSE,
                                       FFN_MOE, RGLRU, RWKV, ModelConfig)
+from repro_torch.kernels import is_dtensor
+from repro_torch.launch.mesh import active_mesh
 from repro_torch.models import attention, layers, moe, rglru, rwkv6
+from repro_torch.sharding.constraints import constrain, gather_fsdp
 
 
 class DecoderLayer(nn.Module):
@@ -74,8 +77,13 @@ class DecoderLayer(nn.Module):
                 cache_pos=None, enc_out=None):
         """(x, cache, aux): aux is the MoE's load-balance loss, None for
         the dense FFN. The cross-attention runs when the layer has one
-        and ``enc_out`` is given, as in the reference."""
-        h = self.norm1(x)
+        and ``enc_out`` is given, as in the reference.
+
+        Each sublayer's input is constrained to whole sequences
+        (``_sublayer_input``): with the residual split over ``model`` on
+        its sequence dim (sequence parallelism), the sublayer gathers it
+        first, as Megatron's does; the identity without a mesh."""
+        h = _sublayer_input(self.norm1(x))
         if self.mixer_kind == RGLRU:
             out, cache = rglru.apply_rglru_block(self.mixer, h, cfg, cache)
         elif self.mixer_kind == RWKV:
@@ -86,18 +94,50 @@ class DecoderLayer(nn.Module):
                                     mrope_positions=mrope_positions,
                                     causal=causal, cache=cache,
                                     cache_pos=cache_pos)
-        x = x + out
+        x = x + _sublayer_output(out)
         if self.xattn is not None and enc_out is not None:
-            h = self.norm_x(x)
+            h = _sublayer_input(self.norm_x(x))
             out, _ = self.xattn(h, cfg, mixer_kind=ATTN_FULL, causal=False,
                                 kv_override=enc_out)
-            x = x + out
-        h = self.norm2(x)
+            x = x + _sublayer_output(out)
+        h = _sublayer_input(self.norm2(x))
         if isinstance(self.ffn, moe.MoE):
             out, aux = self.ffn(h, cfg)
         else:
             out, aux = self.ffn(h), None
-        return x + out, cache, aux
+        return x + _sublayer_output(out), cache, aux
+
+
+class _WholeSeqGrad(torch.autograd.Function):
+    """The identity, whose gradient is split on the batch only: a
+    sublayer's output joins a residual split on its sequence dim too, and
+    without this its gradient would come back split there, where the
+    product's backward cannot merge (B, S)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        from torch.distributed.tensor import Replicate, Shard
+        ctx.mesh = y.device_mesh
+        ctx.placements = tuple(
+            p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in y.placements)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != tuple(ctx.placements):
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def _sublayer_output(y):
+    return _WholeSeqGrad.apply(y) if is_dtensor(y) else y
+
+
+def _sublayer_input(h):
+    """``h`` split on the batch only: a DTensor cannot merge (B, S) for a
+    product while S is split (the reference leaves that to GSPMD)."""
+    return constrain(h, "batch", None, None)
 
 
 class Encoder(nn.Module):
@@ -208,6 +248,9 @@ def _remat_layer(layer: DecoderLayer, x, cfg: ModelConfig, kw: dict):
     enc_out = kw.pop("enc_out", None)
 
     def run(x, enc, *ws):
+        # on a mesh the layer's weights are gathered here, inside the
+        # checkpoint: again at the recompute, never kept
+        ws = [gather_fsdp(w) for w in ws]
         x, _, aux = torch.func.functional_call(
             layer, dict(zip(names, ws)), (x, cfg), {**kw, "enc_out": enc})
         return x, aux
@@ -222,8 +265,17 @@ def run_encoder(model: Backbone, cfg: ModelConfig, audio_embeds):
     positions, then the final norm (``backbone.py:192-201``)."""
     x = audio_embeds.to(layers.cdtype(cfg))
     for layer in model.encoder.layers:
-        x, _, _ = layer(x, cfg, causal=False)
+        x, _, _ = _call_layer(layer, x, cfg, causal=False)
     return model.encoder.final_norm(x)
+
+
+def _call_layer(layer, x, cfg: ModelConfig, **kw):
+    """``layer(x, cfg, **kw)``; with ``DTensor`` weights on a mesh, run
+    on its weights gathered over the data axes (``gather_fsdp``)."""
+    if active_mesh() is None:
+        return layer(x, cfg, **kw)
+    ws = {n: gather_fsdp(w) for n, w in layer.named_parameters()}
+    return torch.func.functional_call(layer, ws, (x, cfg), kw)
 
 
 def _embed_inputs(model: Backbone, cfg: ModelConfig, tokens, patch_embeds):
@@ -255,17 +307,21 @@ def forward(model: Backbone, cfg: ModelConfig, tokens, *, positions=None,
                          "cache)")
     if enc_out is None and cfg.is_encoder_decoder and audio_embeds is not None:
         enc_out = run_encoder(model, cfg, audio_embeds)
-    x = _embed_inputs(model, cfg, tokens, patch_embeds)
+    x = constrain(_embed_inputs(model, cfg, tokens, patch_embeds),
+                  "batch", "seq_model", None)
     kw = dict(positions=positions, mrope_positions=mrope_positions,
               enc_out=enc_out)
     aux = torch.zeros((), device=x.device)
     for i, layer in enumerate(model.layers):
+        if i % cfg.cycle_len == 0:
+            # the residual's layout at each block (one mixer/ffn cycle)
+            x = constrain(x, "batch", "seq_model", None)
         if remat:
             x, a = _remat_layer(layer, x, cfg, kw)
         else:
-            x, new, a = layer(x, cfg,
-                              cache=None if cache is None else cache[i],
-                              cache_pos=cache_pos, **kw)
+            x, new, a = _call_layer(
+                layer, x, cfg, cache=None if cache is None else cache[i],
+                cache_pos=cache_pos, **kw)
             if cache is not None:
                 cache[i] = new
         if a is not None and cache is None:
@@ -276,20 +332,24 @@ def forward(model: Backbone, cfg: ModelConfig, tokens, *, positions=None,
 def logits_and_value(model: Backbone, cfg: ModelConfig, hidden):
     """(logits (B, S, V) fp32, value (B, S) fp32): the LM head runs in the
     model dtype and is then widened, as in the reference."""
-    logits = (hidden @ model.lm_head).float()
+    logits = (hidden @ gather_fsdp(model.lm_head)).float()
     logits = layers.softcap(logits, cfg.final_softcap)
-    value = (hidden.float() @ model.value_head)[..., 0]
+    value = (hidden.float() @ gather_fsdp(model.value_head))[..., 0]
     return logits, value
 
 
 def prefill(model: Backbone, cfg: ModelConfig, tokens, max_len: int,
-            **kw):
+            cache=None, **kw):
     """Build decode caches from a full prompt; ``kw`` goes to ``forward``
     (positions, mrope_positions, patch_embeds, audio_embeds, enc_out).
-    Returns (logits_last (B, V), value_last (B,), cache)."""
+    ``cache``: the empty caches to fill (``init_decode_cache``'s, made
+    here when None). Returns (logits_last (B, V), value_last (B,),
+    cache)."""
     B, _ = tokens.shape
-    cache = init_decode_cache(cfg, B, max_len, device=tokens.device)
+    if cache is None:
+        cache = init_decode_cache(cfg, B, max_len, device=tokens.device)
     hidden, cache, _ = forward(model, cfg, tokens, cache=cache, **kw)
+    hidden = _sublayer_input(hidden)
     logits, value = logits_and_value(model, cfg, hidden[:, -1:])
     return logits[:, 0], value[:, 0], cache
 

@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import is_dtensor
 
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -115,6 +116,7 @@ class MLP(nn.Module):
         dt = cdtype(cfg)
         d_ff = d_ff or cfg.d_ff
         self.kind = cfg.mlp_kind
+        self.pg = cfg.grad_comm_bf16
         self.w_in = nn.Parameter(torch.empty(cfg.d_model, d_ff,
                                              dtype=dt, device=device))
         self.w_out = nn.Parameter(torch.empty(d_ff, cfg.d_model,
@@ -131,12 +133,40 @@ class MLP(nn.Module):
             normal_(self.w_gate, generator, d_model ** -0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x @ self.w_in
+        h = pg_dot(x, self.w_in, enable=self.pg)
         if self.kind == "swiglu":
-            h = F.silu(x @ self.w_gate) * h
+            h = F.silu(pg_dot(x, self.w_gate, enable=self.pg)) * h
         else:
             h = F.gelu(h, approximate="tanh")
-        return h @ self.w_out
+        return pg_dot(h, self.w_out, enable=self.pg)
+
+
+# ------------------------------------------------- precision-gated dots
+class _PgDot(torch.autograd.Function):
+    """``x @ w`` whose weight gradient leaves the backward in the weight's
+    dtype, so the data-axis reduction of a sharded gradient moves that
+    dtype (``layers.py:95-134``, ``ModelConfig.grad_comm_bf16``). The
+    products are those of the matmul's own backward."""
+
+    @staticmethod
+    def forward(x, w):
+        return x @ w
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = (g @ w.t()).to(x.dtype)
+        dw = x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+        return dx, dw.to(w.dtype)
+
+
+def pg_dot(x, w, *, enable: bool = False):
+    """``x @ w``; with ``enable`` through ``_PgDot``."""
+    return _PgDot.apply(x, w) if enable else x @ w
 
 
 # ---------------------------------------------------------------- embed
@@ -199,7 +229,34 @@ def _segment_sums(keys, rows):
 
 
 def apply_embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(table):
+        return _embed_per_shard(table, tokens)
     return _Embed.apply(table, tokens)
+
+
+def _embed_per_shard(table, tokens):
+    """``_Embed`` on each rank's tokens against the whole table (gathered,
+    as the reference's lookup gathers its sharded table), through
+    ``local_map``: the rows come out split as the tokens are, and the
+    table's gradient, each rank's sum over its own tokens, leaves as a
+    ``Partial`` sum over the mesh dims that split the tokens (reduced
+    into the table's own split). The same deterministic backward."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh,
+                                    [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tok = tuple(tokens.placements)
+    whole = (Replicate(),) * mesh.ndim
+    grad = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in tok)
+    rows = tuple(Shard(p.dim) if isinstance(p, Shard) else p for p in tok)
+    return local_map(_Embed.apply, out_placements=list(rows),
+                     in_placements=(whole, tok),
+                     in_grad_placements=(grad, tok), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 # ---------------------------------------------------------------- init

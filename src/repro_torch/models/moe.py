@@ -35,7 +35,10 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import is_dtensor, per_shard, split_axes
 from repro_torch.models import layers
+from repro_torch.sharding.constraints import constrain
+from repro_torch.sharding.rules import P
 
 
 class MoE(nn.Module):
@@ -101,6 +104,12 @@ def load_balance_loss(probs, gate_idx, cfg: ModelConfig):
 
 
 def _expert_ffn(xin, w_in, w_gate, w_out):
+    if is_dtensor(xin):
+        # expert parallel: each rank's groups (data axes) through its
+        # experts (model), the reference's layout of xin and eo
+        b, m = split_axes(xin, xin.shape[0], xin.shape[1])
+        return per_shard(_expert_ffn, (xin, w_in, w_gate, w_out),
+                         (P(b, m), P(m), P(m), P(m)), (P(b, m),))
     h = torch.einsum("necd,edf->necf", xin, w_in)
     g = torch.einsum("necd,edf->necf", xin, w_gate)
     return torch.einsum("necf,efd->necd", F.silu(g) * h, w_out)
@@ -113,6 +122,7 @@ def apply_moe(moe: MoE, x, cfg: ModelConfig):
     T = B * S
     n = -(-T // G)
     xg = F.pad(x.reshape(T, D), (0, 0, 0, n * G - T)).reshape(n, G, D)
+    xg = constrain(xg, "batch", None, None)
     probs, gate_vals, gate_idx = route(xg, moe.router, K)     # (n, G, K)
 
     cap = max(1, int(G * K * cfg.capacity_factor / E))
@@ -131,12 +141,14 @@ def apply_moe(moe: MoE, x, cfg: ModelConfig):
                         oh_e * gate_vals.to(x.dtype)[..., None], oh_c)
 
     xin = torch.einsum("ngec,ngd->necd", disp, xg)            # (n,E,cap,D)
+    xin = constrain(xin, "batch", "experts", None, None)
     weights = (moe.w_in, moe.w_gate, moe.w_out)
     if torch.is_grad_enabled():
         eo = torch.utils.checkpoint.checkpoint(_expert_ffn, xin, *weights,
                                                use_reentrant=False)
     else:
         eo = _expert_ffn(xin, *weights)
+    eo = constrain(eo, "batch", "experts", None, None)
     y = torch.einsum("ngec,necd->ngd", comb, eo)              # (n, G, D)
     if hasattr(moe, "shared"):
         y = y + moe.shared(xg)

@@ -22,6 +22,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.lru_scan import ops as lru_ops
 from repro_torch.models import layers
+from repro_torch.sharding.constraints import constrain
 
 
 class RGLRU(nn.Module):
@@ -84,6 +85,8 @@ def _gates(params: RGLRU, x, cfg: ModelConfig):
 def rglru_scan(params: RGLRU, x, cfg: ModelConfig, h0=None):
     """x: (B, S, D) -> (y in x.dtype, h_last (B, D) fp32)."""
     a, b = _gates(params, x, cfg)                          # (B, S, D) fp32
+    a = constrain(a, "batch", None, "dsq")
+    b = constrain(b, "batch", None, "dsq")
     y, h_last = lru_ops.scan(a, b, h0, use_kernel=cfg.use_pallas_attention)
     return y.to(x.dtype), h_last
 

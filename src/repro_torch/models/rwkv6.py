@@ -24,6 +24,7 @@ from repro_torch.kernels.wkv6 import ops as wkv_ops
 # re-exported under the reference's name (repro.models.rwkv6.wkv6_ref)
 from repro_torch.kernels.wkv6.ref import wkv6_ref  # noqa: F401
 from repro_torch.models import layers
+from repro_torch.sharding.constraints import constrain
 
 DECAY_RANK = 64
 
@@ -106,6 +107,8 @@ def apply_rwkv6_block(params: RWKV6, x, cfg: ModelConfig, cache=None):
     x_prev = cache["xprev"] if cache is not None else None
     s0 = cache["state"] if cache is not None else None
     r, k, v, w, g = _project(params, x, cfg, x_prev)
+    r, k, v, w = (constrain(t, "batch", None, "heads", None)
+                  for t in (r, k, v, w))
     o, s_T = wkv_ops.mix(r, k, v, w, params.u, s0,
                          use_kernel=cfg.use_pallas_attention)
     o = _head_norm(params, o.float())

@@ -10,8 +10,9 @@
   --intervals 4`` prints the rewards ``api.build(...).run(4)`` gives; a
   checkpointed launcher run stopped at 4 and resumed to 6 equals
   ``Session.fit(6)`` bit for bit.
-* What the port lacks raises ``NotImplementedError`` naming its ROADMAP
-  item: the stream runtime's TPU meshes. The football env and the M-RoPE
+* The stream runtime's production mesh, once refused as unported
+  (ROADMAP queue 1, item 9), now refuses a world of the wrong size,
+  naming the ranks it needs. The football env and the M-RoPE
   and encoder-decoder backbones, once refused, build and run;
   ``Session.serve`` and ``Session.pool`` work; the host,
   sync and async runtimes build and run. Without CUDA, ``build`` and the
@@ -190,13 +191,17 @@ def _backbone(**overrides):
                                            "reduced": True, **overrides}}
 
 
-@pytest.mark.parametrize("change,item", [
+@pytest.mark.parametrize("change,match", [
     (dict(_LLM, policy=_backbone(),
-          runtime={"name": "stream", "kwargs": {"mesh": "pod"}}), "item 9"),
+          runtime={"name": "stream", "kwargs": {"mesh": "pod"}}),
+     "needs a process group of 256 ranks; this one has 1"),
 ])
-def test_unported_parts_raise_not_implemented(change, item):
+def test_unported_parts_raise_not_implemented(change, match):
+    """The one part this test held as unported, the stream runtime's
+    ``pod`` mesh, is ported: on one process it raises, naming the 256
+    ranks it needs."""
     spec = api.ExperimentSpec(**{"env": "catch", **change})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
+    with pytest.raises(ValueError, match=match):
         api.build(spec, device="cpu")
 
 
