@@ -5,8 +5,9 @@
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. the card: nvidia-smi name and power limit, torch and CUDA versions;
-2. the build: every hand-written kernel of the serving paths
-   (flash_attention, lru_scan, wkv6), one nvcc per source, all started
+2. the build: every hand-written kernel of the main paths
+   (flash_attention, lru_scan, wkv6 and the backwards of flash_attention
+   and wkv6), one nvcc per source, all started
    together, with each compiler report (registers, spills), the count
    of tensor-core instructions (HGMMA, HMMA) in each library's SASS and
    of TMA loads (UTMALDG) in lru_scan's;
@@ -150,25 +151,32 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    index. The port's kernels launch 0 times in this process over all of
    it;
 10. LLM-policy training (``phase_llm_train``): (a) each kernel's backward
-   (flash attention and wkv6: the VJP of the plain version on the saved
-   inputs; lru_scan: the kernel again on reversed time) under
-   ``.backward()`` and ``torch.func.grad`` against autograd of the plain
-   version on the card, at 1e-4 (fp32) and 3e-2 (bf16): the reference
-   grad tests' shapes, shapes off the block multiples, soft-cap, GQA,
-   window, h0 or none, a cotangent on h_last, mixed dtypes, wkv6 at T 1,
-   31, 32, 33, 512 with w = 0, and the training shapes, each printing
-   its route; each backward's time at its training shape against its
-   plain version's, SDPA's backward (flash) and a bound; (b) ``python -m
+   (flash attention and wkv6: their hand-written backward kernels,
+   flash's from the lse its forward writes; lru_scan: the kernel again
+   on reversed time) under ``.backward()`` and ``torch.func.grad``
+   against autograd of the plain version on the card, at 1e-4 (fp32) and
+   3e-2 (bf16), and ``.backward()`` twice on the same inputs for
+   ``torch.equal`` gradients (no atomics): the reference grad tests'
+   shapes, shapes off the block multiples, soft-cap, GQA, window, every
+   bf16 head dim, fp32, Sq != Sk, ``kv_len`` through the bindings, every
+   arch's attention at its training shape, h0 or none, a cotangent on
+   h_last, mixed dtypes, wkv6 at T 1, 31, 32, 33, 512 with w = 0, N 8
+   and 16 and RWKV-6's (4, 512, 64, 64), each printing its route and its
+   backward-kernel launches; each backward's time at its training shape
+   against its plain version's, SDPA's backward (flash) and a bound, the
+   flash backward kernel alone at every arch's training shape, and the
+   forward with and without its lse; (b) ``python -m
    repro_torch.launch.train --arch starcoder2-3b --steps 3 --batch 4
    --seq 512`` as typed (full width and depth: 30 layers, d_model 3072,
    bf16, Adam): finite losses, ms per step and tokens/s after the first
    step, peak memory beside the training state's reckoning, 60 flash
-   launches per step; the same for Granite-3.0-1B-a400m (24 layers, 48
-   flash a step) with its load-balance loss nonzero; (c)
-   RecurrentGemma-9B (3 layers) and RWKV-6-7B (2
-   layers) at full width through ``python -m repro_torch.launch.run
-   --spec``, with their launches per step (lru_scan 6 and flash 2; wkv6
-   4), then the first step's loss and every gradient leaf, kernels
+   forward and 30 backward launches per step; the same for
+   Granite-3.0-1B-a400m (24 layers, 48 and 24 a step) with its
+   load-balance loss nonzero; (c) RecurrentGemma-9B (3 layers) and
+   RWKV-6-7B (2 layers) at full width through ``python -m
+   repro_torch.launch.run --spec``, with their launches per step
+   (lru_scan 6, flash 2 and its backward 1; wkv6 4 and its backward
+   2), then the first step's loss and every gradient leaf, kernels
    against plain versions on the card, in bf16 and in fp32: the loss at
    3e-2 (bf16) and 1e-4 (fp32), each leaf's relative L2 distance printed
    (RWKV-6's beside a witness with the kernel's rounding) and the
@@ -408,10 +416,24 @@ SOURCES = {
                  "src/repro/kernels/lru_scan/kernel.py:42"),
     "wkv6": ("src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
              "src/repro/kernels/wkv6/kernel.py:52"),
+    # the backwards replace the reference's custom_vjp, which
+    # differentiates its oracle (no Pallas backward)
+    "flash_attention_bwd": ("src/repro_torch/kernels/flash_attention/csrc/"
+                            "flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention/ops.py:41"),
+    "wkv6_bwd": ("src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",
+                 "src/repro/kernels/wkv6/ops.py:31"),
 }
+# kernel -> (its module in kernel_modules(), its launch counter there)
+COUNTERS = {"flash_attention": ("flash_attention", "launches"),
+            "lru_scan": ("lru_scan", "launches"),
+            "wkv6": ("wkv6", "launches"),
+            "flash_attention_bwd": ("flash_attention", "bwd_launches"),
+            "wkv6_bwd": ("wkv6", "bwd_launches")}
 
 # kernels whose libraries must hold tensor-core instructions
-TENSOR_CORE_KERNELS = ("flash_attention", "wkv6")
+TENSOR_CORE_KERNELS = ("flash_attention", "wkv6", "flash_attention_bwd",
+                       "wkv6_bwd")
 
 # arch -> launches expected (in serve.main: prefill + GEN-1 decode steps,
 # per prefill, per decode step); kernels not named must launch 0 times.
@@ -534,10 +556,12 @@ POOL_A = ROOT / "examples" / "specs" / "pool_a.json"
 
 # LLM-policy training (phase_llm_train). (a): each kernel's backward
 # against autograd of its plain version, at tests/test_kernels.py's
-# tolerances: flash at the reference grad test's case, off the blocks,
-# soft-capped, GQA and at the training shapes (StarCoder2-3B's,
-# RecurrentGemma-9B's and Granite-3.0-1B-a400m's attention at B 4,
-# S 512); lru_scan at the reference
+# tolerances, and run twice for equal gradients (the backward kernels use
+# no atomics): flash at the reference grad test's case, off the blocks,
+# soft-capped, GQA, every bf16 Dh, fp32, and every arch's attention at its
+# training shape (B 4, S 512; Whisper's encoder at its 1500 frames, its
+# cross-attention 512 against 1500), and ``kv_len`` through the bindings
+# (FLASH_KV_LEN); lru_scan at the reference
 # grad test's shape with and without h0, off the blocks, in bf16, with
 # mixed dtypes and at RecurrentGemma's (4, 512, 4096); wkv6 at T 1, 31,
 # 32, 33, 512 with a tenth of w = 0, and at RWKV-6's (4, 512, 64, 64)
@@ -553,12 +577,15 @@ TRAIN_FLASH = [
     (2, 192, 4, 2, 256, False, 0, 0.0, 128, 128, torch.bfloat16),
     (2, 80, 4, 2, 120, True, 32, 30.0, 128, 128, torch.bfloat16),
     (1, 96, 4, 1, 160, True, 0, 0.0, 128, 128, torch.bfloat16),
-    MAIN_TRAIN, RG_TRAIN, GRANITE_TRAIN,
-    # Whisper-medium's training shapes: the encoder's 1500 frames and the
-    # cross-attention of 512 decoder positions against them (non-causal)
-    (4, 1500, 16, 16, 64, False, 0, 0.0, 128, 128, torch.bfloat16),
-    (4, 512, 16, 16, 64, False, 0, 0.0, 128, 128, torch.bfloat16, 1500),
-]
+    (2, 100, 4, 2, 32, True, 0, 0.0, 128, 128, torch.bfloat16),
+    (2, 70, 4, 4, 200, False, 0, 0.0, 128, 128, torch.float32, 150),
+] + [c if c is WHISPER_ENC_ATTN else (4, 512) + c[2:] for c in PREFILL_ATTN]
+# (B, Sq, Sk, H, KV, Dh, causal, dtype, kv_len): the bindings with a
+# kv_len mask (the model passes none; the wrapper's padding did), held
+# against autograd of the plain forward
+FLASH_KV_LEN = [(2, 130, 130, 4, 2, 64, True, torch.bfloat16, 97),
+                (2, 70, 150, 4, 4, 128, False, torch.bfloat16, 101),
+                (2, 70, 150, 4, 2, 96, False, torch.float32, 33)]
 LRU_TRAIN = (4, 512, 4096, torch.float32)
 TRAIN_LRU = [((2, 32, 8, torch.float32), True),
              ((2, 32, 8, torch.float32), False),
@@ -569,7 +596,9 @@ TRAIN_LRU = [((2, 32, 8, torch.float32), True),
              (LRU_TRAIN, False)]
 WKV_TRAIN = (4, 512, 64, 64, torch.bfloat16)
 TRAIN_WKV = [((2, T, 4, 64, torch.float32), "zero")
-             for T in (1, 31, 32, 33, 512)] + [(WKV_TRAIN, "reference")]
+             for T in (1, 31, 32, 33, 512)] + [
+    ((2, 100, 4, 16, torch.bfloat16), "fast"),
+    ((2, 70, 4, 8, torch.float32), "zero"), (WKV_TRAIN, "reference")]
 # (b): the main path as a user types it; its flash launches per step (30
 # layers, forward and the checkpointed layer's recompute)
 LLM_STEPS, LLM_BATCH, LLM_SEQ = 3, 4, 512
@@ -579,10 +608,12 @@ LLM_TRAIN = {"starcoder2-3b": 60, "granite-moe-1b-a400m": 48}
 # (c): the other families at full width, depth cut: arch -> (n_layers,
 # launches per step). RecurrentGemma's one (rglru, rglru, local) cycle:
 # lru_scan forward, recompute and backward in 2 layers, flash forward
-# and recompute in 1; RWKV-6: wkv6 forward and recompute in 2 layers
+# and recompute in 1 and its backward kernel; RWKV-6: wkv6 forward and
+# recompute in 2 layers, and its backward kernel in each
 LLM_SPEC_RUNS = {"recurrentgemma-9b": (3, {"lru_scan": 6,
-                                           "flash_attention": 2}),
-                 "rwkv6-7b": (2, {"wkv6": 4})}
+                                           "flash_attention": 2,
+                                           "flash_attention_bwd": 1}),
+                 "rwkv6-7b": (2, {"wkv6": 4, "wkv6_bwd": 2})}
 LLM_SPEC_STEPS = 2
 LLM_LOSS_TOL = 3e-2      # bf16, kernels vs plain versions, first step
 # (c) the largest per-leaf relative L2 gradient distance, kernels vs
@@ -620,21 +651,19 @@ LLM_FIRST_STEP = {"gemma2-27b": 2, "stablelm-12b": 2, "h2o-danube-3-4b": 24,
                   "qwen2-vl-72b": 2}
 # (d): StarCoder2-3B at full width with its depth cut for the resume
 LLM_RESUME_LAYERS = 1
+FLASH_BOTH = ("flash_attention", "flash_attention_bwd")
 # (e): reduced fp32 configs, card vs CPU over 3 steps: label -> (arch,
 # config overrides, the kernels it must launch); the MoE archs with their
 # routing held equal
 LLM_CARD_CPU = {
-    "starcoder2-3b": ("starcoder2-3b", {}, ("flash_attention",)),
+    "starcoder2-3b": ("starcoder2-3b", {}, FLASH_BOTH),
     "recurrentgemma-9b": ("recurrentgemma-9b", {},
-                          ("lru_scan", "flash_attention")),
-    "rwkv6-7b": ("rwkv6-7b", {}, ("wkv6",)),
-    "granite-moe-1b-a400m": ("granite-moe-1b-a400m", {},
-                             ("flash_attention",)),
+                          ("lru_scan",) + FLASH_BOTH),
+    "rwkv6-7b": ("rwkv6-7b", {}, ("wkv6", "wkv6_bwd")),
+    "granite-moe-1b-a400m": ("granite-moe-1b-a400m", {}, FLASH_BOTH),
     "granite-moe-1b-a400m dropless": ("granite-moe-1b-a400m",
-                                      {"moe_impl": "dropless"},
-                                      ("flash_attention",)),
-    "llama4-scout-17b-a16e": ("llama4-scout-17b-a16e", {},
-                              ("flash_attention",)),
+                                      {"moe_impl": "dropless"}, FLASH_BOTH),
+    "llama4-scout-17b-a16e": ("llama4-scout-17b-a16e", {}, FLASH_BOTH),
 }
 CARD_CPU_LOSS_TOL = 1e-4
 CARD_CPU_PARAMS_TOL = 1e-5
@@ -648,6 +677,7 @@ CARD_CPU_PARAMS_TOL = 1e-5
 # QWEN_TRAIN_LAYERS layers (4.25 B params, 59.5 GB of state), one layer
 # if that runs out of memory; 2 flash launches a layer a step
 WHISPER_TRAIN_FLASH = 24 + 2 * (24 + 24)
+WHISPER_TRAIN_FLASH_BWD = 24 + 24 + 24   # the backward once a layer
 QWEN_TRAIN_LAYERS = 2
 # (g): blocked_attention (the plain-PyTorch training route with its tiled
 # backward) against attend_plain on the card, forward and gradients, at
@@ -689,29 +719,41 @@ def kernel_modules() -> dict:
             "wkv6": wkv_kernel}
 
 
+def kernel_libraries() -> dict:
+    """kernel -> the function that builds and loads its library."""
+    mods = kernel_modules()
+    return {name: getattr(mods[mod], "bwd_library" if attr == "bwd_launches"
+                          else "library")
+            for name, (mod, attr) in COUNTERS.items()}
+
+
 def zero_launches() -> None:
     mods = kernel_modules()
-    for mod in mods.values():
-        mod.launches = 0
+    for mod, attr in COUNTERS.values():
+        setattr(mods[mod], attr, 0)
     mods["lru_scan"].tma_launches = 0
 
 
 def read_launches() -> dict:
     torch.cuda.synchronize()
-    return {name: mod.launches for name, mod in kernel_modules().items()}
+    mods = kernel_modules()
+    return {name: getattr(mods[mod], attr)
+            for name, (mod, attr) in COUNTERS.items()}
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time per call. A ~5 ms spin kernel is queued first, so the
-    host enqueues the timed calls while the card is busy: a kernel shorter
-    than its wrapper's Python overhead is timed on the device, not at the
-    host's launch rate."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            spin: int = 10_000_000) -> float:
+    """Device time per call. A spin kernel of ``spin`` cycles (~5 ms by
+    default) is queued first, so the host enqueues the timed calls while
+    the card is busy: a kernel shorter than its wrapper's Python overhead
+    is timed on the device, not at the host's launch rate, as long as the
+    spin outlasts the host's enqueueing of all ``iters`` calls."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(10_000_000)
+    torch.cuda._sleep(spin)
     start.record()
     for _ in range(iters):
         fn()
@@ -917,14 +959,14 @@ def phase_card() -> str:
 def phase_build() -> None:
     """One nvcc per source, all started together."""
     def build(item):
-        name, mod = item
+        name, load = item
         t0 = time.perf_counter()
-        lib = mod.library()
+        lib = load()
         return name, time.perf_counter() - t0, Path(lib._name)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
-        built = list(pool.map(build, kernel_modules().items()))
+        built = list(pool.map(build, kernel_libraries().items()))
     print(f"build: {len(built)} libraries in "
           f"{time.perf_counter() - t0:.1f}s (in parallel)")
     for name, secs, path in built:
@@ -1171,7 +1213,7 @@ def phase_kernels() -> dict:
 
 
 def _expect(counts: dict, expected: dict, what: str) -> None:
-    want = {name: expected.get(name, 0) for name in SOURCES}
+    want = {name: expected.get(name, 0) for name in COUNTERS}
     check(counts == want, f"{what}: launches {counts}, expected {want}")
 
 
@@ -1612,28 +1654,35 @@ def wkv_times(case) -> dict:
             "bound_ms_cuda_cores": cuda_cores["bound_ms"], **bd}
 
 
-def _entry(name: str, runs: dict, err: float, times: list,
-           llm: dict) -> dict:
-    """A kernel's row of the ``{"kernels": ...}`` line. ``launches`` sums
-    the main paths' runs: the three serving paths and the training
-    paths of ``phase_llm_train`` (b) and (c); ``backward`` is the
-    backward's time at its training shape, ``backward_max_abs_err`` the
-    largest error of phase 10 (a)."""
+def _path_launches(name: str, runs: dict, llm: dict) -> dict:
+    """A kernel's launches by main path: the serving paths and the
+    training paths of ``phase_llm_train`` (b) and (c)."""
     runs = dict(runs)
     for arch, row in llm["launch"].items():
-        runs[f"train {arch}"] = {"launches": row["launches"],
-                                 "lru_scan_tma": 0}
+        runs[f"train {arch}"] = {"launches": row["launches"]}
     for arch, fam in llm["families"].items():
-        runs[f"train {arch}"] = {"launches": fam["launches"],
-                                 "lru_scan_tma": fam["lru_scan_tma"]}
-    by_path = {arch: run["launches"][name] for arch, run in runs.items()
-               if run["launches"][name]}
+        runs[f"train {arch}"] = {"launches": fam["launches"]}
+    return {arch: run["launches"][name] for arch, run in runs.items()
+            if run["launches"][name]}
+
+
+def _entry(name: str, runs: dict, err: float, times: list,
+           llm: dict) -> dict:
+    """A forward kernel's row of the ``{"kernels": ...}`` line.
+    ``launches`` sums the main paths' runs (``_path_launches``);
+    lru_scan's backward (the same kernel) adds its time at its training
+    shape and the largest error of phase 10 (a)."""
+    by_path = _path_launches(name, runs, llm)
     first = times[0]
-    extra = {"backward": llm["backward_times"][name],
-             "backward_max_abs_err": max(
-                 row["max_abs_err"] for row in llm["backward"][name])}
+    extra = {}
     if name == "lru_scan":
-        extra["launches_tma"] = sum(run["lru_scan_tma"] for run in runs.values())
+        extra = {"backward": llm["backward_times"][name],
+                 "backward_max_abs_err": max(
+                     row["max_abs_err"] for row in llm["backward"][name]),
+                 "launches_tma": sum(run.get("lru_scan_tma", 0)
+                                     for run in runs.values())
+                 + sum(fam["lru_scan_tma"]
+                       for fam in llm["families"].values())}
         extra.update({k: first[k] for k in ("kernel", "reads_ms", "gb_s",
                                             "same_traffic_mul_ms")})
     return {"name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -1644,6 +1693,24 @@ def _entry(name: str, runs: dict, err: float, times: list,
             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
             "shape": first["shape"], "other_shapes": times[1:]}
+
+
+def _bwd_entry(name: str, runs: dict, llm: dict) -> dict:
+    """A backward kernel's row: its time at its training shape (the
+    ``Function``'s backward, ``_bwd_times``) beside the bound, the plain
+    version's backward and the library's; the largest error of phase 10
+    (a); launches on the training paths."""
+    fwd = name[:-len("_bwd")]
+    t = llm["backward_times"][fwd]
+    by_path = _path_launches(name, runs, llm)
+    return {"name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(row["max_abs_err"]
+                               for row in llm["backward"][fwd]),
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+            "shape": t["shape"], "other_shapes": t.get("other_shapes", [])}
 
 
 # ------------------------------------------------------------ training
@@ -2852,8 +2919,10 @@ def _grad_case(name: str, call, inputs: list, label: str, gen) -> dict:
     """One kernel's backward on the card: gradients of sum(out * c) (c a
     fixed N(0, 1) cotangent per output) through the kernel route under
     ``.backward()`` and under ``torch.func.grad``, against autograd of the
-    plain version; each input's gradient at GRAD_TOL of its dtype.
-    ``call(*inputs, use_kernel=...)`` returns the output tuple."""
+    plain version; each input's gradient at GRAD_TOL of its dtype; and
+    ``.backward()`` again on the same inputs, ``torch.equal`` to the
+    first (deterministic). ``call(*inputs, use_kernel=...)`` returns the
+    output tuple."""
     idx = [i for i, x in enumerate(inputs) if x is not None]
     with torch.no_grad():
         outs = call(*inputs, use_kernel=False)
@@ -2873,8 +2942,11 @@ def _grad_case(name: str, call, inputs: list, label: str, gen) -> dict:
     mods = kernel_modules()
     zero_launches()
     got = autograd(True)
-    launched = read_launches()[name]
+    counts = read_launches()
+    launched = counts[name]
+    bwd = counts.get(f"{name}_bwd", 0)
     tma = mods["lru_scan"].tma_launches
+    same = all(torch.equal(a, b) for a, b in zip(got, autograd(True)))
     got_f = torch.func.grad(
         lambda *xs: loss(*[xs[idx.index(i)] if i in idx else None
                            for i in range(len(inputs))], use_kernel=True),
@@ -2887,26 +2959,28 @@ def _grad_case(name: str, call, inputs: list, label: str, gen) -> dict:
     bf16 = any(t.dtype == torch.bfloat16 for t in [*outs, *(
         inputs[i] for i in idx)])
     tol = TRAIN_GRAD_TOL[torch.bfloat16 if bf16 else torch.float32]
-    err, ok = 0.0, launched > 0
+    own_bwd = f"{name}_bwd" in COUNTERS
+    err, ok = 0.0, launched > 0 and same and (bwd == 1 or not own_bwd)
     for g, gf, w in zip(got, got_f, want):
         for x in (g, gf):
             err = max(err, (x.float() - w.float()).abs().max().item())
             ok = ok and x.dtype == w.dtype and bool(
                 torch.isfinite(x).all()) and torch.allclose(
                 x.float(), w.float(), atol=tol, rtol=tol)
-    route = {"flash_attention": "kernel forward; backward the VJP of the "
-                                "plain version",
-             "wkv6": "kernel forward; backward the VJP of the chunked "
-                     "plain version",
-             "lru_scan": f"kernel forward and backward ({tma} of "
-                         f"{launched} launches on the TMA kernel)"}[name]
-    row = {"case": label, "launches": launched, "route": route,
-           "max_abs_err": err, "tol": tol, "ok": ok}
+    route = ("kernel forward and backward" if own_bwd else
+             f"kernel forward and backward ({tma} of {launched} launches "
+             "on the TMA kernel)")
+    row = {"case": label, "launches": launched, "bwd_launches": bwd,
+           "route": route, "max_abs_err": err, "tol": tol,
+           "deterministic": same, "ok": ok}
+    launches = (f"{launched} forward and {bwd} backward-kernel launches"
+                if own_bwd else f"{launched} launches (the forward and the "
+                "backward's reversed-time run)")
     print(f"llm_train (a) {name} backward {label}: .backward() and "
           f"torch.func.grad vs autograd of the plain version max abs err "
-          f"{err:.3e} (allclose at {tol}); {launched} launches under "
-          f".backward(); route: "
-          f"{route}; ok {ok}")
+          f"{err:.3e} (allclose at {tol}); {launches} under .backward(); "
+          f"again on the same inputs torch.equal {same}; route: {route}; "
+          f"ok {ok}")
     check(ok, f"{name} backward {row}")
     return row
 
@@ -2940,12 +3014,104 @@ def _llm_backwards() -> dict:
             f"(B, S, D)={case[:3]} a {case[3]}, b "
             f"{case[4] if len(case) > 4 else case[3]}, h0 {init}, "
             "cotangent on y and h_last", gen))
+    rows["flash_attention"] += [_kv_len_case(c, gen) for c in FLASH_KV_LEN]
     for case, decay in TRAIN_WKV:
         rows["wkv6"].append(_grad_case(
             "wkv6",
             lambda *x, use_kernel: wkv_ops.mix(*x, use_kernel=use_kernel),
             list(wkv_inputs(case, gen, decay)),
             f"(B, T, H, N)={case[:4]} {case[4]} w {decay}", gen))
+    return rows
+
+
+def _kv_len_case(case, gen) -> dict:
+    """(a) with a ``kv_len`` mask, through the bindings (the model passes
+    none): the forward with its lse and the backward kernel against
+    autograd of the plain forward (``flash_attention_fwd_ref``), twice
+    for equal gradients."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_fwd_ref
+    B, Sq, Sk, H, KV, Dh, causal, dt, kv_len = case
+    q = torch.randn((B, Sq, H, Dh), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((B, Sk, KV, Dh), generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    do = torch.randn((B, Sq, H, Dh), generator=gen, device="cuda").to(dt)
+    kw = dict(causal=causal, kv_len=kv_len)
+    zero_launches()
+    o, lse = fk.flash_attention(q, k, v, lse=True, **kw)
+    got = fk.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fk.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    counts = read_launches()
+    xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(
+        flash_attention_fwd_ref(*xs, **kw)[0], xs, do)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    tol = TRAIN_GRAD_TOL[dt]
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    ok = same and all(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol)
+                      for a, b in zip(got, want))
+    label = (f"(B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} Dh={Dh} causal={causal}"
+             f" kv_len={kv_len} {dt})")
+    print(f"llm_train (a) flash_attention backward {label} through the "
+          f"bindings: vs autograd of the plain forward max abs err "
+          f"{err:.3e} (allclose at {tol}); again torch.equal {same}; ok "
+          f"{ok}")
+    check(ok, f"flash_attention backward with kv_len {label}")
+    return {"case": label, "launches": counts["flash_attention"],
+            "bwd_launches": counts["flash_attention_bwd"],
+            "route": "the bindings", "max_abs_err": err, "tol": tol,
+            "deterministic": same, "ok": ok}
+
+
+def _flash_fwd_lse_ms(q, k, v) -> dict:
+    """The forward binding with and without the lse it writes for the
+    backward (serving asks for none), at one shape."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    row = {"fwd_ms": cuda_ms(lambda: fk.flash_attention(q, k, v)),
+           "fwd_lse_ms": cuda_ms(lambda: fk.flash_attention(q, k, v,
+                                                            lse=True))}
+    print(f"  flash_attention forward {list(q.shape)}: {row['fwd_ms']:.4f} "
+          f"ms, with the lse {row['fwd_lse_ms']:.4f} ms (0.0390 ms before "
+          "the forward could write one; PERF.md)")
+    return row
+
+
+def _visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a mask lets through, the work the bounds count."""
+    q = np.arange(Sq)[:, None]
+    k = np.arange(Sk)[None, :]
+    ok = np.ones((Sq, Sk), bool)
+    if causal:
+        ok &= k <= q
+    if window:
+        ok &= k > q - window
+    return int(ok.sum())
+
+
+def _flash_bwd_shapes(gen) -> list:
+    """The backward kernel alone (the bindings, inputs from the forward
+    with its lse) at every arch's training shape, beside its bound."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    rows = []
+    for case in TRAIN_FLASH[-len(PREFILL_ATTN):]:
+        B, S, H, KV, Dh, causal, window, cap, *_, dt = case[:11]
+        q, k, v = flash_inputs(case, gen)
+        kw = dict(causal=causal, window=window, cap=cap)
+        o, lse = fk.flash_attention(q, k, v, lse=True, **kw)
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(dt)
+        ms = cuda_ms(lambda: fk.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    **kw), 10, 2)
+        Sk = k.shape[1]
+        pairs = _visible_pairs(S, Sk, causal, window)
+        row = {"shape": [B, S, Sk, H, KV, Dh, causal, window, cap], "ms": ms,
+               **bound(nbytes(q, k, v, o, do, q, k, v, lse, lse),
+                       10 * B * H * pairs * Dh, dt)}
+        print(f"  flash_attention backward kernel {row['shape']}: {ms:.4f} "
+              f"ms; bound {row['bound_ms']:.4f} ms by {row['bound_by']}")
+        rows.append(row)
     return rows
 
 
@@ -2962,6 +3128,10 @@ def _bwd_times() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(11)
     out = {}
 
+    # autograd.grad costs the host far more than a launch: a ~50 ms spin
+    # keeps the timed backwards queued behind it (device time)
+    spin = 100_000_000
+
     def timed(fn_kernel, fn_plain, inputs, iters=10, warmup=2):
         xs = [x.detach().clone().requires_grad_() for x in inputs]
         o_k = fn_kernel(*xs)
@@ -2969,9 +3139,9 @@ def _bwd_times() -> dict:
         cots = [torch.randn(o.shape, generator=gen, device="cuda").to(
             o.dtype) for o in o_k]
         k_ms = cuda_ms(lambda: torch.autograd.grad(
-            o_k, xs, cots, retain_graph=True), iters, warmup)
+            o_k, xs, cots, retain_graph=True), iters, warmup, spin)
         p_ms = cuda_ms(lambda: torch.autograd.grad(
-            o_p, xs, cots, retain_graph=True), iters, warmup)
+            o_p, xs, cots, retain_graph=True), iters, warmup, spin)
         return k_ms, p_ms, xs, cots
 
     # flash attention at StarCoder2's shape
@@ -2992,13 +3162,16 @@ def _bwd_times() -> dict:
             vt.repeat_interleave(H // KV, 1), is_causal=True)
     g_s = torch.randn(o_s.shape, generator=gen, device="cuda").to(dt)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(o_s, (qt, kt, vt), g_s,
-                                                 retain_graph=True))
+                                                 retain_graph=True),
+                     spin=spin)
     pairs = S * (S + 1) // 2
     # q, k, v, o and do read, dq, dk, dv written; 5 products of the
     # (query, key) pairs: S = q k^T again, dV, dP, dQ, dK
     bd = bound(nbytes(q, k, v, q, q, q, k, v), 10 * B * H * pairs * Dh, dt)
     out["flash_attention"] = {"shape": [B, S, H, KV, Dh], "ms": k_ms,
-                              "plain_ms": p_ms, "library_ms": lib_ms, **bd}
+                              "plain_ms": p_ms, "library_ms": lib_ms, **bd,
+                              **_flash_fwd_lse_ms(q, k, v),
+                              "other_shapes": _flash_bwd_shapes(gen)}
     # lru_scan at RecurrentGemma's shape
     a, b, h0 = lru_inputs(LRU_TRAIN, gen)
     mods = kernel_modules()
@@ -3106,7 +3279,10 @@ def _llm_launch(arch: str, smi: str, flash: int | None = None) -> dict:
           f" Adam m and v fp32); launches {launches}, per step {per_step}; "
           f"{wall:.1f} s in all")
     flash = LLM_TRAIN[arch] if flash is None else flash
-    _expect(launches, {"flash_attention": flash * LLM_STEPS},
+    # the backward kernel once a layer: half the forward's (forward and
+    # the checkpointed layer's recompute)
+    _expect(launches, {"flash_attention": flash * LLM_STEPS,
+                       "flash_attention_bwd": flash // 2 * LLM_STEPS},
             f"{arch} training")
     _free_cuda()
     return {"losses": losses, "aux": aux, "step_ms": step_ms,
@@ -3363,13 +3539,14 @@ def _llm_card_vs_cpu() -> dict:
     return rows
 
 
-def _modal_train(arch: str, n_layers: int, smi: str,
-                 per_step: int) -> dict:
+def _modal_train(arch: str, n_layers: int, smi: str, per_step: int,
+                 bwd_per_step: int) -> dict:
     """(f): LLM_STEPS steps of ``learner.make_train_step`` (Adam, bf16,
     the kernels on) at full width with ``n_layers`` layers, on token
     batches of the stream with ``modal_batch``'s inputs: losses finite,
     ms per step and tokens/s after the first, the peak memory beside the
-    state's reckoning, ``per_step`` flash launches a step."""
+    state's reckoning, ``per_step`` flash forward and ``bwd_per_step``
+    backward launches a step."""
     from repro_torch import models, optim
     from repro_torch.core import delayed_grad, determinism, learner
     from repro_torch.data.pipeline import TokenStream
@@ -3410,7 +3587,8 @@ def _modal_train(arch: str, n_layers: int, smi: str,
           f"state's {reck['state_bytes'] / 1e9:.2f} GB ({reck['params']:,} "
           f"params); launches {launches}")
     check(all(np.isfinite(losses)), f"{arch} losses {losses}")
-    _expect(launches, {"flash_attention": per_step * LLM_STEPS},
+    _expect(launches, {"flash_attention": per_step * LLM_STEPS,
+                       "flash_attention_bwd": bwd_per_step * LLM_STEPS},
             f"{arch} training")
     return {"n_layers": n_layers, "losses": losses, "step_ms": step_ms,
             "tokens_s": tok_s, "peak_bytes": peak, **reck,
@@ -3423,7 +3601,7 @@ def _qwen_train(smi: str) -> dict:
     arch = "qwen2-vl-72b"
     for n in (QWEN_TRAIN_LAYERS, 1):
         try:
-            row = _modal_train(arch, n, smi, 2 * n)
+            row = _modal_train(arch, n, smi, 2 * n, n)
             if n != QWEN_TRAIN_LAYERS:
                 row["oom_at"] = QWEN_TRAIN_LAYERS
             return row
@@ -3439,9 +3617,8 @@ def _blocked_on_card(smi: str) -> dict:
     forward and q, k, v gradients of sum(out * c) at TRAIN_GRAD_TOL, with
     each one's forward-and-backward time and peak memory; then one
     StarCoder2-3B first step at full width and depth through the kernel
-    route (``use_pallas_attention``: the kernel's forward, the VJP of the
-    plain version, which builds the (B, H, S, S) scores, as its
-    backward) and through the blocked route, with each one's peak
+    route (``use_pallas_attention``: the kernel's forward and its
+    backward kernel) and through the blocked route, with each one's peak
     memory and time; their losses within LLM_LOSS_TOL."""
     from repro_torch import models
     from repro_torch.core import determinism
@@ -3581,7 +3758,8 @@ def phase_llm_train() -> dict:
         for arch, n_layers in LLM_FIRST_STEP.items()}
     res["card_vs_cpu"] = _llm_card_vs_cpu()
     res["launch"]["whisper-medium"] = _modal_train(
-        "whisper-medium", 24, smi, WHISPER_TRAIN_FLASH)
+        "whisper-medium", 24, smi, WHISPER_TRAIN_FLASH,
+        WHISPER_TRAIN_FLASH_BWD)
     res["launch"]["qwen2-vl-72b"] = _qwen_train(smi)
     res["blocked"] = _blocked_on_card(smi)
     res["danube_adam"] = _danube_adam(smi)
@@ -3865,8 +4043,9 @@ def main() -> int:
              "lru_scan": lru_times(),
              "wkv6": [wkv_times(WKV_MAIN), wkv_times(WKV_DECODE)]}
     print("phase seconds: " + json.dumps(seconds))
-    print(json.dumps({"kernels": [_entry(k, runs, errs[k], times[k], llm)
-                                  for k in SOURCES]}))
+    print(json.dumps({"kernels": [
+        _bwd_entry(k, runs, llm) if k.endswith("_bwd")
+        else _entry(k, runs, errs[k], times[k], llm) for k in SOURCES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -17,9 +17,12 @@ On the CUDA route each wrapper calls its kernel inside a
 ``torch.autograd.Function`` (``setup_context`` style, with a ``vmap``
 rule, ``vmap_by_folding``), so ``.backward()``, ``torch.func.grad``,
 ``vjp`` and ``vmap`` all work on the kernels' outputs. Each backward is
-the reference's: the VJP of the plain version on the saved inputs for
-flash attention and wkv6, the same kernel run on reversed time for
-lru_scan. The CPU route differentiates through the plain version.
+a kernel too: flash attention's and wkv6's own backward kernels (each
+called through a ``Function`` of its own, so ``vmap`` of a gradient
+folds it too), the same kernel run on reversed time for lru_scan. The
+reference differentiates its oracles (``custom_vjp``); the backward
+kernels compute the same gradients. The CPU route differentiates through
+the plain version.
 
 Two more routes, neither of which launches anything on a CPU tensor or
 hides the card. A ``FakeTensor`` (the dry run's shape propagation,
@@ -183,6 +186,15 @@ def vmap_by_folding(apply, info, in_dims, args, batched):
     outs = apply(*folded)
     outs = tuple(o.reshape(n, lead, *o.shape[1:]) for o in outs)
     return outs, (0,) * len(outs)
+
+
+def raise_on_error(lib, err: int, what: str) -> None:
+    """Raise if a kernel library's entry point returned a CUDA error
+    (the launch was refused or failed); ``lib`` names the error."""
+    if err:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.repro_cuda_error_string(err).decode()} "
+                           f"(cudaError_t {err})")
 
 
 def _nvcc() -> str:

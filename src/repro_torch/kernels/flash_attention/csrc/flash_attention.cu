@@ -65,16 +65,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "wgmma.cuh"
 
 namespace {
-
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-
-struct Strides {  // in elements; the head dimension is contiguous
-  long long b, s, h;
-};
 
 // ------------------------------------------------ fp32, CUDA cores
 constexpr int kWarps = 8;
@@ -104,7 +98,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, Strides sq,
               Strides sk, Strides sv, Strides so, int H, int KV, int Sq,
               int Sk, int Dh, int causal, int window, float cap, float scale,
-              int kv_len) {
+              int kv_len, float* __restrict__ lse) {
   extern __shared__ float smem[];
   float* kT = smem;                    // [Dh][kKStride]  K tile, transposed
   float* vs = kT + Dh * kKStride;      // [kBK][Dh]       V tile
@@ -229,6 +223,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int qpos = q0 + row0 + r;
     if (qpos >= Sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[((size_t)b * H + h) * Sq + qpos] = m[r] + logf(denom);
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
       const int d = lane + 32 * t;
@@ -242,7 +238,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        Strides sq, Strides sk, Strides sv, Strides so, int B,
                        int H, int KV, int Sq, int Sk, int Dh, int causal,
                        int window, float cap, float scale, int kv_len,
-                       cudaStream_t stream) {
+                       float* lse, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)Dh * kKStride + (size_t)kBK * Dh +
                        (size_t)kBQ * Dh);
@@ -254,7 +250,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_fwd_f32<NT><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so, H,
-      KV, Sq, Sk, Dh, causal, window, cap, scale, kv_len);
+      KV, Sq, Sk, Dh, causal, window, cap, scale, kv_len, lse);
   return cudaGetLastError();
 }
 
@@ -262,18 +258,18 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
                          Strides sq, Strides sk, Strides sv, Strides so, int B,
                          int H, int KV, int Sq, int Sk, int Dh, int causal,
                          int window, float cap, float scale, int kv_len,
-                         cudaStream_t st) {
+                         float* lse, cudaStream_t st) {
   if (Dh <= 32)
     return launch_f32<1>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk, Dh,
-                         causal, window, cap, scale, kv_len, st);
+                         causal, window, cap, scale, kv_len, lse, st);
   if (Dh <= 64)
     return launch_f32<2>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk, Dh,
-                         causal, window, cap, scale, kv_len, st);
+                         causal, window, cap, scale, kv_len, lse, st);
   if (Dh <= 128)
     return launch_f32<4>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk, Dh,
-                         causal, window, cap, scale, kv_len, st);
+                         causal, window, cap, scale, kv_len, lse, st);
   return launch_f32<8>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk, Dh,
-                       causal, window, cap, scale, kv_len, st);
+                       causal, window, cap, scale, kv_len, lse, st);
 }
 
 // ------------------------------------------------ bf16, wgmma + TMA
@@ -286,132 +282,6 @@ constexpr int kStages = 2;    // K/V ring depth
 // shapes on the H100)
 constexpr int kKeys = 32;
 constexpr int kWgThreads = 128;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// The width the bf16 kernel runs head dim DH at: DH below 64, else DH
-// rounded up to whole 64-column slabs (120 -> 128, 160 -> 192).
-template <int DH>
-constexpr int kPadded = DH < 64 ? DH : (DH + 63) / 64 * 64;
-
-// Shared-memory geometry of a ROWS-row tile of (padded) head dim DH. A row
-// of one slab is one swizzle row: 128 B (64 bf16) when DH >= 64, else DH * 2
-// bytes.
-template <int DH, int ROWS>
-struct Tile {
-  static constexpr int kCols = DH >= 64 ? 64 : DH;      // columns per slab
-  static constexpr int kSlabs = DH / kCols;
-  static constexpr int kRowBytes = kCols * 2;           // 128, 64 or 32
-  static constexpr int kSlabBytes = ROWS * kRowBytes;
-  static constexpr int kBytes = kSlabs * kSlabBytes;    // = ROWS * DH * 2
-  // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
-  static constexpr uint64_t kLayout = DH >= 64 ? 1 : (DH == 32 ? 2 : 3);
-  static constexpr int kGroupBytes = 8 * kRowBytes;     // 8 rows: one atom
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// start address, leading and stride byte offsets (all in 16 B units), and
-// the swizzle mode (bits 62-63).
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
-}
-
-// K-major operand (Q or K tile, ROWS x DH): k-step kk covers head-dim
-// columns 16kk..16kk+15, 32 bytes into a swizzle row.
-template <int DH, int ROWS>
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t base, int kk) {
-  using G = Tile<DH, ROWS>;
-  constexpr int kPerSlab = G::kCols / 16;
-  const uint32_t addr =
-      base + (kk / kPerSlab) * G::kSlabBytes + (kk % kPerSlab) * 32;
-  return make_desc(addr, 16, G::kGroupBytes, G::kLayout);
-}
-
-// MN-major operand (V tile as B of P V: K = keys, N = head dim): k-step kk
-// covers keys 16kk..16kk+15, i.e. 16 swizzle rows further; the N direction
-// crosses slabs at the leading byte offset.
-template <int DH, int ROWS>
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t base, int kk) {
-  using G = Tile<DH, ROWS>;
-  return make_desc(base + kk * 16 * G::kRowBytes, G::kSlabBytes,
-                   G::kGroupBytes, G::kLayout);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One TMA box of a 4-D map (dh, head, s, b) into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-template <int DH, int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
-                                          uint32_t bar, int head, int row0,
-                                          int b) {
-  using G = Tile<DH, ROWS>;
-#pragma unroll
-  for (int s = 0; s < G::kSlabs; ++s)
-    tma_load(dst + s * G::kSlabBytes, map, bar, s * G::kCols, head, row0, b);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// 2^x by the SFU alone (relative error ~2^-22, subnormal results flushed to
-// zero): enough for probabilities rounded to bf16 before P V.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
 
 // Accumulator layout of a 64 x N wgmma tile, thread t of the warpgroup:
 // register 4c + 2r + e holds row 16 (t / 32) + (t % 32) / 4 + 8r, column
@@ -535,7 +405,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_v,
                __nv_bfloat16* __restrict__ o, Strides so, int H, int KV,
                int Sq, int Sk, int causal, int window, float cap, float scale,
-               int kv_len) {
+               int kv_len, float* __restrict__ lse) {
   constexpr int DP = kPadded<DH>;
   using QT = Tile<DP, kRows>;
   using KT = Tile<DP, kKeys>;
@@ -656,6 +526,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
     const float inv = 1.f / fmaxf(sum, 1e-30f);
     const int qpos = q0 + row_a + 8 * r;
     if (qpos >= Sq) continue;
+    // the row's log-sum-exp in natural units: m and sum are in base 2
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((size_t)b * H + h) * Sq + qpos] =
+          (m[r] + log2f(fmaxf(sum, 1e-30f))) * kLn2;
     __nv_bfloat16* orow = o + b * so.b + qpos * so.s + h * so.h;
 #pragma unroll
     for (int c = 0; c < DH / 8; ++c)  // the columns past DH are not stored
@@ -664,60 +538,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// 4-D map over (dh, head, s, b) of a bf16 tensor, box (slab cols, 1, ROWS,
-// 1); out-of-range rows, and the padded columns past DH, read as zeros.
-template <int DH, int ROWS>
-bool make_map(CUtensorMap* map, const void* base, int heads, int S, int B,
-              Strides st) {
-  constexpr int DP = kPadded<DH>;
-  using G = Tile<DP, ROWS>;
-  const EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
-                                 (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)G::kCols, 1, ROWS, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = DP >= 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : DP == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                            : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DH>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         Strides sq, Strides sk, Strides sv, Strides so, int B,
                         int H, int KV, int Sq, int Sk, int causal, int window,
-                        float cap, float scale, int kv_len,
+                        float cap, float scale, int kv_len, float* lse,
                         cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!make_map<DH, kRows>(&mq, q, H, Sq, B, sq) ||
@@ -734,7 +559,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + kRows - 1) / kRows, H, B);
   flash_fwd_bf16<DH><<<grid, kWgThreads, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), so, H, KV, Sq, Sk, causal,
-      window, cap, scale, kv_len);
+      window, cap, scale, kv_len, lse);
   return cudaGetLastError();
 }
 
@@ -742,29 +567,29 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
                           Strides sq, Strides sk, Strides sv, Strides so,
                           int B, int H, int KV, int Sq, int Sk, int Dh,
                           int causal, int window, float cap, float scale,
-                          int kv_len, cudaStream_t st) {
+                          int kv_len, float* lse, cudaStream_t st) {
   switch (Dh) {
     case 16:
       return launch_bf16<16>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
-                             causal, window, cap, scale, kv_len, st);
+                             causal, window, cap, scale, kv_len, lse, st);
     case 32:
       return launch_bf16<32>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
-                             causal, window, cap, scale, kv_len, st);
+                             causal, window, cap, scale, kv_len, lse, st);
     case 64:
       return launch_bf16<64>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
-                             causal, window, cap, scale, kv_len, st);
+                             causal, window, cap, scale, kv_len, lse, st);
     case 120:
       return launch_bf16<120>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
-                              causal, window, cap, scale, kv_len, st);
+                              causal, window, cap, scale, kv_len, lse, st);
     case 128:
       return launch_bf16<128>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
-                              causal, window, cap, scale, kv_len, st);
+                              causal, window, cap, scale, kv_len, lse, st);
     case 160:
       return launch_bf16<160>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
-                              causal, window, cap, scale, kv_len, st);
+                              causal, window, cap, scale, kv_len, lse, st);
     case 256:
       return launch_bf16<256>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
-                              causal, window, cap, scale, kv_len, st);
+                              causal, window, cap, scale, kv_len, lse, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -775,7 +600,9 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
 // q, o: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); `strides` holds (b, s, h) in
 // elements for q, k, v, o in that order, the head dimension contiguous.
 // dtype: 0 = float32 (Dh <= 256), 1 = bfloat16 (Dh in {16, 32, 64, 120, 128,
-// 160, 256}). kv_len < 0 means "no kv_len mask". Returns a cudaError_t (0 on
+// 160, 256}). kv_len < 0 means "no kv_len mask". lse, when not NULL, gets
+// each row's log-sum-exp of the scaled, capped, masked scores: fp32 (B, H,
+// Sq), contiguous (the backward's input). Returns a cudaError_t (0 on
 // success); the caller raises on anything else.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* o,
@@ -783,7 +610,7 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          int H, int KV, int Sq, int Sk,
                                          int Dh, int causal, int window,
                                          float cap, float scale, int kv_len,
-                                         int dtype, void* stream) {
+                                         int dtype, void* stream, void* lse) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
       Dh <= 0 || Dh > 256 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
@@ -792,12 +619,13 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
   const Strides sv{strides[6], strides[7], strides[8]};
   const Strides so{strides[9], strides[10], strides[11]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lf = static_cast<float*>(lse);
   if (dtype == 0)
     return (int)dispatch_f32(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk, Dh,
-                             causal, window, cap, scale, kv_len, st);
+                             causal, window, cap, scale, kv_len, lf, st);
   if (dtype == 1)
     return (int)dispatch_bf16(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Sk,
-                              Dh, causal, window, cap, scale, kv_len, st);
+                              Dh, causal, window, cap, scale, kv_len, lf, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,8 +13,13 @@ the launch is refused. It takes CUDA tensors only: the CPU goes through
 ``ref.py`` (see ``ops.attend``). A ``FakeTensor`` (the dry run) is
 checked the same way and gets its output allocated, with no launch.
 
-``launches`` counts the kernel's launches in this process; callers that
-want to show a path went through the kernel set it to 0 and read it.
+The backward, ``flash_attention_bwd``, is a second library from
+``csrc/flash_attention_bwd.cu`` (the row dot, dK/dV and dQ kernels of
+the FA2 split, from the forward's ``lse``), bound the same way.
+
+``launches`` and ``bwd_launches`` count the forward's and the backward's
+launches in this process; callers that want to show a path went through
+the kernels set them to 0 and read them.
 """
 from __future__ import annotations
 
@@ -26,21 +31,39 @@ import torch
 from repro_torch import kernels
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = Path(__file__).parent / "csrc" / "flash_attention_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # 120 and 160 run at the padded widths 128 and 192 inside the kernel
 BF16_HEAD_DIMS = (16, 32, 64, 120, 128, 160, 256)
 
 launches = 0
+bwd_launches = 0
 
 
 def library() -> ctypes.CDLL:
     lib = kernels.load("flash_attention", SOURCE)
     fn = lib.repro_flash_attention_fwd
     # (q, k, v, o, strides[12], B, H, KV, Sq, Sk, Dh, causal, window, cap,
-    #  scale, kv_len, dtype, stream)
+    #  scale, kv_len, dtype, stream, lse or NULL)
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_float]
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bwd_library() -> ctypes.CDLL:
+    lib = kernels.load("flash_attention_bwd", BWD_SOURCE)
+    fn = lib.repro_flash_attention_bwd
+    # (q, k, v, o, dout, lse, dq, dk, dv, D, part or NULL, strides[24], B,
+    #  H, KV, Sq, Sk, Dh, causal, window, cap, scale, kv_len, split, dtype,
+    #  stream)
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_float]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -48,13 +71,33 @@ def library() -> ctypes.CDLL:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    cap: float = 0.0, kv_len=None) -> torch.Tensor:
+                    cap: float = 0.0, kv_len=None, lse: bool = False):
     """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh): CUDA tensors of one dtype
     (fp32 with Dh <= 256, or bf16 with Dh in ``BF16_HEAD_DIMS``), the head
     dimension contiguous, other strides free (bf16: 16-byte aligned, as
-    TMA needs). Returns a contiguous (B, Sq, H, Dh) in that dtype."""
+    TMA needs). Returns a contiguous (B, Sq, H, Dh) in that dtype; with
+    ``lse`` also each row's log-sum-exp of the scaled, capped, masked
+    scores, fp32 (B, H, Sq), which the backward takes."""
+    _check(q, k, v)
+    B, Sq, H, Dh = q.shape
+    Sk = k.shape[1]
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse_t = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+             if lse else None)
+    if not kernels.is_fake(q):
+        _launch(q, k, v, o, lse_t, causal, window, cap, kv_len)
+    kernels.notify("flash_attention", (q, k, v), (o,) if lse_t is None
+                   else (o, lse_t),
+                   flops=4.0 * B * H * Sq * Sk * Dh,
+                   transcendentals=B * H * Sq * Sk)
+    return o if lse_t is None else (o, lse_t)
+
+
+def _check(q, k, v, *more) -> None:
+    """What both kernels take: ``more`` are further (name, tensor) pairs
+    laid out as q (o, the output's cotangent)."""
     fake = kernels.is_fake(q)
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *more):
         if (t.device.type != "cuda" and not fake):
             raise ValueError(f"flash_attention kernel: {name} is on "
                              f"{t.device}; the kernel takes CUDA tensors "
@@ -80,22 +123,96 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         if Dh not in BF16_HEAD_DIMS:
             raise ValueError(f"flash_attention kernel: bf16 head dim {Dh} "
                              f"not in {BF16_HEAD_DIMS}")
-        for name, t in (("q", q), ("k", k), ("v", v)):
+        for name, t in (("q", q), ("k", k), ("v", v), *more):
             if (not fake and t.data_ptr() % 16) or any(
                     s * 2 % 16 for s in t.stride()[:3]):
                 raise ValueError(f"flash_attention kernel: bf16 {name} needs "
                                  "a 16-byte aligned base and strides (TMA), "
                                  f"got strides {t.stride()}")
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if not fake:
-        _launch(q, k, v, o, causal, window, cap, kv_len)
-    kernels.notify("flash_attention", (q, k, v), (o,),
-                   flops=4.0 * B * H * Sq * Sk * Dh,
+    for name, t in more:
+        if t.shape != q.shape:
+            raise ValueError(f"flash_attention kernel: {name} "
+                             f"{tuple(t.shape)} must have q's shape "
+                             f"{tuple(q.shape)}")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, cap: float = 0.0, kv_len=None):
+    """The gradients (dq, dk, dv) of ``flash_attention`` for the output
+    cotangent ``do``, from the forward's output ``o`` and ``lse``: q, o, do
+    (B, Sq, H, Dh), k, v (B, Sk, KV, Dh) as the forward takes them (o and
+    do strided as q may be), lse fp32 (B, H, Sq) contiguous. Returns
+    contiguous gradients in the inputs' dtype. Deterministic: no atomics."""
+    _check(q, k, v, ("o", o), ("do", do))
+    B, Sq, H, Dh = q.shape
+    Sk = k.shape[1]
+    if (lse.dtype != torch.float32 or lse.shape != (B, H, Sq)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError("flash_attention backward: lse must be a contiguous "
+                         f"fp32 (B, H, Sq) = {(B, H, Sq)} on q's device, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                  for t in (q, k, v))
+    D = torch.empty_like(lse)
+    split = dkdv_split(B, Sk, H, k.shape[2], Dh, q.dtype)
+    part = (torch.empty((2, split) + tuple(k.shape), dtype=torch.float32,
+                        device=q.device) if split > 1 else None)
+    if not kernels.is_fake(q):
+        _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, D, part, split, causal,
+                    window, cap, kv_len)
+    # S = q k^T again, dP = do v^T, dV, dQ, dK over the full tile grid
+    kernels.notify("flash_attention_bwd", (q, k, v, o, lse, do),
+                   (dq, dk, dv), flops=10.0 * B * H * Sq * Sk * Dh,
                    transcendentals=B * H * Sq * Sk)
-    return o
+    return dq, dk, dv
 
 
-def _launch(q, k, v, o, causal, window, cap, kv_len) -> None:
+# the dK/dV kernel's keys a block (64, and 32 for fp32 at Dh > 128) and
+# column parts (bf16 padded widths 192 and 256: 3 and 2), and the grid it
+# should reach: two blocks on each of the H100's 132 SMs
+DKDV_TARGET_BLOCKS = 2 * 132
+
+
+def dkdv_split(B: int, Sk: int, H: int, KV: int, Dh: int, dtype) -> int:
+    """How many blocks of the dK/dV kernel share one kv head's H / KV query
+    heads: 1 when the grid is full already (each block then sums its whole
+    group), else enough to reach ``DKDV_TARGET_BLOCKS`` (StarCoder2-3B's
+    2 kv heads at B 4, S 512: 64 blocks alone); the blocks' partial sums
+    are added in order. Whole heads per block, none empty."""
+    R = H // KV
+    rows, parts = 64, 1
+    if dtype == torch.bfloat16:
+        width = Dh if Dh < 64 else -(-Dh // 64) * 64
+        parts = {192: 3, 256: 2}.get(width, 1)
+    elif Dh > 128:
+        rows = 32
+    blocks = -(-Sk // rows) * parts * KV * B
+    split = min(R, -(-DKDV_TARGET_BLOCKS // blocks))
+    return -(-R // -(-R // split))
+
+
+def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, D, part, split, causal,
+                window, cap, kv_len) -> None:
+    global bwd_launches
+    B, Sq, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    lib = bwd_library()
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention_bwd(
+            *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, D)),
+            None if part is None else part.data_ptr(),
+            ctypes.cast(strides, ctypes.c_void_p), B, H, KV, Sq, Sk, Dh,
+            int(causal), int(window), float(cap), float(Dh ** -0.5),
+            -1 if kv_len is None else int(kv_len), split, _DTYPES[q.dtype],
+            stream)
+    kernels.raise_on_error(lib, err, "flash_attention backward kernel")
+    bwd_launches += 1
+
+
+def _launch(q, k, v, o, lse, causal, window, cap, kv_len) -> None:
     global launches
     B, Sq, H, Dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -108,9 +225,7 @@ def _launch(q, k, v, o, causal, window, cap, kv_len) -> None:
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p), B, H, KV, Sq, Sk, Dh,
             int(causal), int(window), float(cap), float(Dh ** -0.5),
-            -1 if kv_len is None else int(kv_len), _DTYPES[q.dtype], stream)
-    if err:
-        raise RuntimeError("flash_attention kernel launch failed: "
-                           f"{lib.repro_cuda_error_string(err).decode()} "
-                           f"(cudaError_t {err})")
+            -1 if kv_len is None else int(kv_len), _DTYPES[q.dtype], stream,
+            None if lse is None else lse.data_ptr())
+    kernels.raise_on_error(lib, err, "flash_attention kernel")
     launches += 1

@@ -12,10 +12,16 @@ padded keys are masked by ``kv_len`` and padded query rows are sliced
 away, so both routes compute one function.
 
 Gradients: the kernel runs inside ``FlashAttention``, an
-``autograd.Function`` whose backward is the VJP of ``attend_plain`` on
-the saved (q, k, v), as the reference's ``custom_vjp`` differentiates
-its oracle (``repro/kernels/flash_attention/ops.py:41-48``): both routes
-differentiate one function, in one layout.
+``autograd.Function``. When a gradient may be asked for (grad mode on
+and an input that requires it; serving runs under ``inference_mode``)
+the forward also writes each row's log-sum-exp, and the backward is the
+hand-written backward kernel (``kernel.flash_attention_bwd``) on the
+saved (q, k, v, o, lse), in the model's layout, unpadded. The reference's
+``custom_vjp`` differentiates its oracle
+(``repro/kernels/flash_attention/ops.py:41-48``); the backward kernel
+computes the same gradients (its plain version,
+``ref.flash_attention_bwd_ref``, is held against the reference's
+``jax.grad`` in the tests).
 """
 from __future__ import annotations
 
@@ -51,35 +57,78 @@ def attend_plain(q, k, v, causal: bool = True, window: int = 0,
 
 
 class FlashAttention(torch.autograd.Function):
-    """The kernel's forward; backward = VJP of ``attend_plain``."""
+    """The kernel's forward, with each row's log-sum-exp when a gradient
+    may be asked for (``with_lse``); backward = the backward kernel
+    (``FlashAttentionBwd``) on the saved (q, k, v, o, lse)."""
 
     @staticmethod
-    def forward(q, k, v, causal, window, cap, bq, bk):
-        return kernel.flash_attention(q, k, v, causal=causal, window=window,
-                                      cap=cap)
+    def forward(q, k, v, causal, window, cap, bq, bk, with_lse):
+        kw = dict(causal=causal, window=window, cap=cap)
+        if with_lse:
+            return kernel.flash_attention(q, k, v, lse=True, **kw)
+        return (kernel.flash_attention(q, k, v, **kw),)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, *opts = inputs
-        ctx.save_for_backward(q.contiguous(), k.contiguous(), v.contiguous())
-        ctx.opts = opts
+        q, k, v, causal, window, cap, *_ = inputs
+        ctx.opts = (causal, window, cap)
+        if len(output) == 2:
+            ctx.mark_non_differentiable(output[1])
+            ctx.save_for_backward(q, k, v, *output)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *_):
         if g is None:
             raise RuntimeError("flash_attention backward: no cotangent for "
                                "the output")
-        q, k, v = ctx.saved_tensors
-        _, vjp = torch.func.vjp(
-            lambda q_, k_, v_: attend_plain(q_, k_, v_, *ctx.opts), q, k, v)
-        return (*vjp(g.contiguous()), None, None, None, None, None)
+        saved = ctx.saved_tensors   # unpacked once (checkpoint allows one)
+        if len(saved) != 5:
+            raise RuntimeError("flash_attention backward: the forward kept "
+                               "no lse (it ran without a gradient to ask "
+                               "for)")
+        q, k, v, o, lse = saved
+        dq, dk, dv = FlashAttentionBwd.apply(q, k, v, o, lse, g.contiguous(),
+                                             *ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, *opts):
-        out, dims = vmap_by_folding(
-            lambda *a: (FlashAttention.apply(*a),), info, in_dims,
-            (q, k, v, *opts), (True, True, True) + (False,) * len(opts))
-        return out[0], dims[0]
+    def vmap(info, in_dims, q, k, v, causal, window, cap, bq, bk, with_lse):
+        # a gradient transform below the vmap sees its inputs here, not
+        # where ``attend`` looked
+        with_lse = with_lse or _wants_grad(q, k, v)
+        return vmap_by_folding(
+            FlashAttention.apply, info, in_dims,
+            (q, k, v, causal, window, cap, bq, bk, with_lse),
+            (True,) * 3 + (False,) * 6)
+
+
+class FlashAttentionBwd(torch.autograd.Function):
+    """The backward kernel as a ``Function`` of its own, so that ``vmap``
+    of a gradient folds it into one launch (its ``vmap`` rule); it has no
+    derivative of its own."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, do, causal, window, cap):
+        return kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                          window=window, cap=cap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("flash_attention: the backward kernel has no "
+                           "derivative (no double backward)")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return vmap_by_folding(FlashAttentionBwd.apply, info, in_dims, args,
+                               (True,) * 6 + (False,) * 3)
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def attend(q, k, v, *, causal: bool = True, window: int = 0,
@@ -98,5 +147,6 @@ def attend(q, k, v, *, causal: bool = True, window: int = 0,
                                       use_kernel=use_kernel),
             (q, k, v), (spec,) * 3, (spec,))
     if use_kernel_for(q, use_kernel):
-        return FlashAttention.apply(q, k, v, causal, window, cap, bq, bk)
+        return FlashAttention.apply(q, k, v, causal, window, cap, bq, bk,
+                                    _wants_grad(q, k, v))[0]
     return attend_plain(q, k, v, causal, window, cap, bq, bk)

@@ -13,8 +13,13 @@ through ``ref.py`` (see ``ops.mix``).
 A ``FakeTensor`` (the dry run) is checked the same way and gets its
 outputs allocated, with no launch.
 
-``launches`` counts the kernel's launches in this process; callers that
-want to show a path went through the kernel set it to 0 and read it.
+The backward, ``wkv6_bwd``, is a second library from ``csrc/wkv6_bwd.cu``
+(two state passes over the chunks, then each chunk's gradients), bound
+the same way; ``chunked`` picks its state passes' form too.
+
+``launches`` and ``bwd_launches`` count the forward's and the backward's
+launches in this process; callers that want to show a path went through
+the kernels set them to 0 and read them.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 from repro_torch import kernels
 
 SOURCE = Path(__file__).parent / "csrc" / "wkv6.cu"
+BWD_SOURCE = Path(__file__).parent / "csrc" / "wkv6_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (8, 16, 32, 64)
 # steps per chunk and per sub-chunk of the chunked kernel (csrc/wkv6.cu,
@@ -34,6 +40,7 @@ HEAD_SIZES = (8, 16, 32, 64)
 CHUNK, SUB = 32, 8
 
 launches = 0
+bwd_launches = 0
 
 
 @functools.cache
@@ -55,6 +62,20 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def bwd_library() -> ctypes.CDLL:
+    lib = kernels.load("wkv6_bwd", BWD_SOURCE)
+    fn = lib.repro_wkv6_bwd
+    # (r, k, v, w, u, s0 or NULL, do, ds_T, dr, dk, dv, dw, du, ds0,
+    #  states_s, states_g, du_part, B, T, H, N, dtype, chunked, stream)
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def chunked(T: int, N: int) -> bool:
     """True when a call of this T and N runs the chunked kernel."""
     return T >= CHUNK and N >= 16
@@ -65,12 +86,31 @@ def wkv6(r, k, v, w, u, s0=None):
     bf16); w: (B, T, H, N), u: (H, N), s0: (B, H, N, N) or None, taken in
     fp32. N in ``HEAD_SIZES``. Returns (o (B, T, H, N) in r.dtype, s_T
     (B, H, N, N) fp32)."""
+    w, u, s0 = _fp32(w, u, s0)
+    _check(r, k, v, w, u, s0)
+    B, T, H, N = r.shape
+    o = torch.empty_like(r)
+    s_T = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    if not kernels.is_fake(r):
+        _launch(r, k, v, w, u, s0, o, s_T)
+    # per (b, t, h): k^T v, u (.) kv, S + that, r @ it, w (.) S + kv
+    kernels.notify("wkv6", (r, k, v, w, u, s0), (o, s_T),
+                   flops=7.0 * B * T * H * N * N)
+    return o, s_T
+
+
+def _fp32(*ts):
+    return tuple(None if t is None else t.to(torch.float32).contiguous()
+                 for t in ts)
+
+
+def _check(r, k, v, w, u, s0, *more) -> None:
+    """What both kernels take; ``more`` are further (name, tensor, (shape,
+    dtype)) triples (the backward's cotangents), contiguous on r's
+    device."""
     fake = kernels.is_fake(r)
-    w, u = w.to(torch.float32).contiguous(), u.to(torch.float32).contiguous()
-    if s0 is not None:
-        s0 = s0.to(torch.float32).contiguous()
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
-                    ("s0", s0)):
+                    ("s0", s0), *((n, t) for n, t, _ in more)):
         if t is None:
             continue
         if (t.device.type != "cuda" and not fake) or t.device != r.device:
@@ -97,14 +137,44 @@ def wkv6(r, k, v, w, u, s0=None):
                          f"{None if s0 is None else tuple(s0.shape)} rejected")
     if N not in HEAD_SIZES:
         raise ValueError(f"wkv6 kernel: head size {N} not in {HEAD_SIZES}")
-    o = torch.empty_like(r)
-    s_T = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
-    if not fake:
-        _launch(r, k, v, w, u, s0, o, s_T)
-    # per (b, t, h): k^T v, u (.) kv, S + that, r @ it, w (.) S + kv
-    kernels.notify("wkv6", (r, k, v, w, u, s0), (o, s_T),
-                   flops=7.0 * B * T * H * N * N)
-    return o, s_T
+    for name, t, (shape, dtype) in more:
+        if t.shape != shape or t.dtype != dtype:
+            raise ValueError(f"wkv6 backward: {name} {t.dtype} "
+                             f"{tuple(t.shape)}, expected {dtype} {shape}")
+
+
+def wkv6_bwd(r, k, v, w, u, s0, do, ds_T):
+    """The gradients of ``wkv6`` at (r, k, v, w, u, s0) for the cotangents
+    do (of o: (B, T, H, N), r's dtype) and ds_T (of s_T: (B, H, N, N)
+    fp32), contiguous CUDA tensors as the forward takes them. Returns (dr,
+    dk, dv in r's dtype; dw fp32 (B, T, H, N); du by batch row, fp32 (B, H,
+    N), which the caller sums over the rows; ds0 fp32 (B, H, N, N), the
+    gradient of the initial state, zeros or s0). Deterministic: no
+    atomics."""
+    w, u, s0, ds_T = _fp32(w, u, s0, ds_T)
+    B, T, H, N = r.shape
+    _check(r, k, v, w, u, s0, ("do", do, (r.shape, r.dtype)),
+           ("ds_T", ds_T, ((B, H, N, N), torch.float32)))
+    nc = -(-T // CHUNK)
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty_like(w)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    du_rows = torch.empty((B, H, N), **f32)
+    ds0 = torch.empty((B, H, N, N), **f32)
+    # scratch: each chunk's incoming state and state gradient, du by chunk
+    states_s, states_g = (torch.empty((B, nc, H, N, N), **f32)
+                          for _ in range(2))
+    du_part = torch.empty((B, nc, H, N), **f32)
+    outs = (dr, dk, dv, dw, du_rows, ds0)
+    if not kernels.is_fake(r):
+        _launch_bwd(r, k, v, w, u, s0, do, ds_T, *outs, states_s, states_g,
+                    du_part)
+    # per (b, t, h): the two state passes' products (2 N^2 each) and the
+    # intra-chunk recurrence per state element: S twice (checkpoints and
+    # history), G, and the four sums into dk, dw, dr, dv
+    kernels.notify("wkv6_bwd", (r, k, v, w, u, s0, do, ds_T), outs,
+                   flops=17.0 * B * T * H * N * N)
+    return outs
 
 
 def _launch(r, k, v, w, u, s0, o, s_T) -> None:
@@ -118,8 +188,20 @@ def _launch(r, k, v, w, u, s0, o, s_T) -> None:
             u.data_ptr(), None if s0 is None else s0.data_ptr(),
             o.data_ptr(), s_T.data_ptr(), B, T, H, N, _DTYPES[r.dtype],
             int(chunked(T, N)), stream)
-    if err:
-        raise RuntimeError("wkv6 kernel launch failed: "
-                           f"{lib.repro_cuda_error_string(err).decode()} "
-                           f"(cudaError_t {err})")
+    kernels.raise_on_error(lib, err, "wkv6 kernel")
     launches += 1
+
+
+def _launch_bwd(r, k, v, w, u, s0, do, ds_T, *bufs) -> None:
+    global bwd_launches
+    B, T, H, N = r.shape
+    lib = bwd_library()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = lib.repro_wkv6_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if s0 is None else s0.data_ptr(),
+            do.data_ptr(), ds_T.data_ptr(), *(t.data_ptr() for t in bufs),
+            B, T, H, N, _DTYPES[r.dtype], int(chunked(T, N)), stream)
+    kernels.raise_on_error(lib, err, "wkv6 backward kernel")
+    bwd_launches += 1

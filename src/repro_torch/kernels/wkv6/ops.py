@@ -7,11 +7,13 @@ plain version. Any T, T = 1 (a decode step) included: the TPU kernel's
 chunk divisibility does not carry over.
 
 Gradients: the kernel runs inside ``Wkv6``, an ``autograd.Function``
-whose backward is the VJP of the chunk-checkpointed plain version
-(``wkv6_ref`` with ``chunk=128``: ``ref.wkv6_ref_vjp``, the plain
-route's own backward) on the saved inputs, as the reference's
+whose backward is the hand-written backward kernel
+(``kernel.wkv6_bwd``) on the saved inputs. The reference's
 ``custom_vjp`` differentiates its oracle
-(``repro/kernels/wkv6/ops.py:31-36``).
+(``repro/kernels/wkv6/ops.py:31-36``); the backward kernel computes the
+same gradients (its plain version, ``ref.wkv6_chunked_bwd_ref``, is held
+against the reference's ``jax.grad`` in the tests). The plain route's
+backward stays ``ref.wkv6_ref_vjp``.
 """
 from __future__ import annotations
 
@@ -20,13 +22,12 @@ import torch
 from repro_torch.kernels import (is_dtensor, per_shard, split_axes,
                                  use_kernel_for, vmap_by_folding)
 from repro_torch.kernels.wkv6 import kernel
-from repro_torch.kernels.wkv6.ref import wkv6_ref, wkv6_ref_vjp
-
-BWD_CHUNK = 128
+from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 
 class Wkv6(torch.autograd.Function):
-    """The kernel's forward; backward = VJP of the chunked plain version."""
+    """The kernel's forward; backward = the backward kernel (``Wkv6Bwd``)
+    on the saved inputs."""
 
     @staticmethod
     def forward(r, k, v, w, u, s0):
@@ -36,21 +37,53 @@ class Wkv6(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.has_s0 = inputs[5] is not None
+        ctx.dtypes = (inputs[3].dtype, inputs[4].dtype)
         ctx.save_for_backward(*(t.contiguous() for t in inputs
                                 if t is not None))
 
     @staticmethod
     def backward(ctx, go, gs):
-        saved = list(ctx.saved_tensors)
-        if not ctx.has_s0:
-            saved.append(None)
-        return wkv6_ref_vjp((go, gs), *saved, chunk=BWD_CHUNK)
+        if go is None or gs is None:
+            raise RuntimeError("wkv6 backward: a cotangent is missing")
+        r, k, v, w, u, *s0 = ctx.saved_tensors
+        s0 = s0[0] if ctx.has_s0 else None
+        dr, dk, dv, dw, du_rows, ds0 = Wkv6Bwd.apply(
+            r, k, v, w, u, s0, go.to(r.dtype).contiguous(),
+            gs.float().contiguous())
+        return (dr, dk, dv, dw.to(ctx.dtypes[0]),
+                du_rows.sum(0).to(ctx.dtypes[1]),
+                None if s0 is None else ds0.to(s0.dtype))
 
     @staticmethod
     def vmap(info, in_dims, r, k, v, w, u, s0):
         return vmap_by_folding(Wkv6.apply, info, in_dims,
                                (r, k, v, w, u, s0),
                                (True, True, True, True, False, True))
+
+
+class Wkv6Bwd(torch.autograd.Function):
+    """The backward kernel as a ``Function`` of its own, so that ``vmap``
+    of a gradient folds it into one launch (du comes by batch row for
+    that); it has no derivative of its own."""
+
+    @staticmethod
+    def forward(r, k, v, w, u, s0, go, gs):
+        return kernel.wkv6_bwd(r, k, v, w, u, s0, go, gs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("wkv6: the backward kernel has no derivative (no "
+                           "double backward)")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return vmap_by_folding(Wkv6Bwd.apply, info, in_dims, args,
+                               (True, True, True, True, False, True, True,
+                                True))
 
 
 def mix(r, k, v, w, u, s0=None, *, use_kernel: bool = True):

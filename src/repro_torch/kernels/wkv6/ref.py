@@ -72,8 +72,8 @@ def wkv6_ref_vjp(cts, r, k, v, w, u, s0=None, chunk: int = 64):
     ``cts`` = (do, ds_T), as ``jax.checkpoint`` of each chunk gives it:
     the chunk-boundary states first, then each chunk run again under
     ``torch.func.vjp``, last chunk first. Returns the input gradients
-    (None for an absent s0); the backward of ``wkv6_ref`` and of the
-    kernel's ``ops.Wkv6``."""
+    (None for an absent s0); the backward of ``wkv6_ref`` (the plain
+    route's)."""
     go, gs = cts
     if go is None or gs is None:
         raise RuntimeError("wkv6 backward: a cotangent is missing")
@@ -197,3 +197,77 @@ def wkv6_chunked_ref(r, k, v, w, u, s0=None):
         kdec = kc * pow2([C], slice(1, C + 1))
         s = pow2(C, 0)[..., None] * s + kdec.transpose(2, 3) @ vc
     return o.transpose(1, 2).to(r.dtype), s
+
+
+def wkv6_chunked_bwd_ref(r, k, v, w, u, s0, do, ds_T):
+    """The plain version of the backward kernel (``csrc/wkv6_bwd.cu``), pass
+    for pass, in fp32: it localises a fault of that kernel, as
+    ``wkv6_chunked_ref`` does for the forward. With G_t the gradient of the
+    state after step t:
+
+        G_{t-1} = diag(w_t) G_t + r_t^T do_t                  (G_T = ds_T)
+        dr_t = do_t (S_{t-1} + diag(u) k_t^T v_t)^T
+        dk_t = G_t v_t + u o r_t (v_t . do_t)
+        dv_t = k_t G_t + (r_t . (u o k_t)) do_t
+        dw_t[n] = sum_m G_t[n, m] S_{t-1}[n, m]
+        du = sum_t r_t o k_t (v_t . do_t),   ds0 = G_{-1}
+
+    (a) each chunk's incoming state S_in, from s0, by the chunk products
+    S_out = diag(W) S_in + sum_s (k_s prod_{i>s} w_i)^T v_s; (b) each
+    chunk's outgoing gradient G_out, from ds_T, last chunk first, G_in =
+    diag(W) G_out + sum_s (r_s prod_{i<s} w_i)^T do_s (W the chunk's product
+    of w; every factor a product of w, so a step with w = 0 needs no
+    care); (c) inside each chunk the step recurrence from S_in and G_out.
+    Chunks of ``CHUNK`` steps, the last one ragged. Returns the binding's
+    outputs: (dr, dk, dv in r's dtype, dw fp32, du by batch row (B, H, N)
+    fp32, ds0 (B, H, N, N) fp32)."""
+    B, T, H, N = r.shape
+    C = CHUNK
+    # (B, H, T, N) fp32
+    rf, kf, vf, wf, gf = (t.float().transpose(1, 2) for t in
+                          (r, k, v, w, do))
+    uf = u.float()[None, :, None, :]
+    chunks = [slice(c0, min(c0 + C, T)) for c0 in range(0, T, C)]
+    s_in, s = [], _state0(r, s0)
+    for c in chunks:
+        s_in.append(s)
+        wc = wf[:, :, c]
+        after = torch.cat([wc[:, :, 1:].flip(2).cumprod(2).flip(2),
+                           torch.ones_like(wc[:, :, :1])], 2)  # prod_{i>s}
+        s = (wc.prod(2)[..., None] * s
+             + (kf[:, :, c] * after).transpose(2, 3) @ vf[:, :, c])
+    g_out, g = [None] * len(chunks), ds_T.float()
+    for i in reversed(range(len(chunks))):
+        c = chunks[i]
+        g_out[i] = g
+        wc = wf[:, :, c]
+        before = torch.cat([torch.ones_like(wc[:, :, :1]),
+                            wc[:, :, :-1].cumprod(2)], 2)      # prod_{i<s}
+        g = (wc.prod(2)[..., None] * g
+             + (rf[:, :, c] * before).transpose(2, 3) @ gf[:, :, c])
+    dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
+    for i, c in enumerate(chunks):
+        s, hist = s_in[i], []
+        for t in range(c.start, c.stop):
+            hist.append(s)
+            s = (wf[:, :, t, :, None] * s
+                 + kf[:, :, t, :, None] * vf[:, :, t, None, :])
+        g = g_out[i]
+        for t in reversed(range(c.start, c.stop)):
+            prev = hist[t - c.start]
+            dk[:, :, t] = (g * vf[:, :, t, None, :]).sum(-1)
+            dw[:, :, t] = (g * prev).sum(-1)
+            dr[:, :, t] = (prev * gf[:, :, t, None, :]).sum(-1)
+            dv[:, :, t] = (kf[:, :, t, :, None] * g).sum(-2)
+            g = (wf[:, :, t, :, None] * g
+                 + rf[:, :, t, :, None] * gf[:, :, t, None, :])
+        if i == 0:
+            ds0 = g
+    vd = (vf * gf).sum(-1, keepdim=True)
+    dr = dr + uf * kf * vd
+    dk = dk + uf * rf * vd
+    dv = dv + (rf * uf * kf).sum(-1, keepdim=True) * gf
+    du_rows = (rf * kf * vd).sum(2)
+    back = [x.transpose(1, 2) for x in (dr, dk, dv, dw)]
+    return (*(x.to(r.dtype).contiguous() for x in back[:3]),
+            back[3].contiguous(), du_rows, ds0)

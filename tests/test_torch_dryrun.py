@@ -10,9 +10,9 @@ pytest worker may be left holding one):
   local shard sizes exactly;
 * the collectives are counted by op;
 * at world 1 (``--mesh host``), the dry run's FLOPs equal ``op_cost``'s
-  count of a real step on the CPU through the kernel's route, the
-  binding stood in by its plain version (which counts the same dense
-  4·B·H·Sq·Sk·Dh the binding reports);
+  count of a real step on the CPU through the kernel's route, both
+  bindings stood in by their plain versions (which count the same dense
+  4·B·H·Sq·Sk·Dh and 10·B·H·Sq·Sk·Dh the bindings report);
 * ``grad_comm_bf16`` 1 and 0 are both reported;
 * the CLI prints the reference's ``[OK]`` / ``[SKIP]`` lines.
 """
@@ -72,15 +72,20 @@ SCRIPT = textwrap.dedent("""
         dg, specs_)
     out["rules_state_bytes"] = sum(total)
 
-    # a real CPU step at world 1 through the kernel's route, the binding
-    # stood in by the plain version (as test_torch_kernel_grads does):
-    # the kernel's backward re-runs the plain forward inside its VJP, so
-    # the plain route alone would count one forward a layer less
+    # a real CPU step at world 1 through the kernel's route, both
+    # bindings stood in by their plain versions (as
+    # test_torch_kernel_grads does): the forward with its lse, whose two
+    # products are the 4 B H Sq Sk Dh the binding reports, and the
+    # backward kernel's plain version, whose five are its 10 (the plain
+    # route's autograd would count other products)
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     fa_ops.use_kernel_for = lambda x, use_kernel: use_kernel
     fa_ops.kernel.flash_attention = (
-        lambda q, k, v, causal=True, window=0, cap=0.0:
-        fa_ops.attend_plain(q, k, v, causal, window, cap))
+        lambda q, k, v, causal=True, window=0, cap=0.0, lse=False:
+        (lambda o, l: (o, l) if lse else o)(*fa_ref.flash_attention_fwd_ref(
+            q, k, v, causal=causal, window=window, cap=cap)))
+    fa_ops.kernel.flash_attention_bwd = fa_ref.flash_attention_bwd_ref
     real = dataclasses.replace(cfg, use_pallas_attention=True)
     torch.manual_seed(0)
     model = backbone.init_params(real, torch.Generator().manual_seed(0),
@@ -140,12 +145,13 @@ def test_dry_run_on_a_fake_4x4_world(runs, kind):
     assert roof["bottleneck"] in ("compute", "memory", "collective")
     assert roof["compute_s"] == pytest.approx(
         r["cost_loop_aware"]["flops"] / 989.4e12)
-    if kind != "decode":
-        # the flash kernel's fake route in the one layer: forward (and
-        # the checkpointed layer's recompute; its backward is the plain
-        # version's VJP)
-        assert r["kernel_calls"] == {"flash_attention": (
-            2 if kind == "train" else 1)}
+    if kind == "train":
+        # the flash kernels' fake route in the one layer: the forward and
+        # the checkpointed layer's recompute, then the backward kernel
+        assert r["kernel_calls"] == {"flash_attention": 2,
+                                     "flash_attention_bwd": 1}
+    elif kind == "prefill":
+        assert r["kernel_calls"] == {"flash_attention": 1}
 
 
 def test_state_bytes_are_the_rules_local_shards(runs):

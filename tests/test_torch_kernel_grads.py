@@ -2,13 +2,13 @@
 against autograd of their plain versions and against the reference's
 ``ops`` VJPs.
 
-The CUDA branch is taken with the ctypes binding replaced by a stand-in
-that computes the plain version (no card here), so what is tested is each
-``Function``'s backward: the VJP of ``attend_plain`` in the reference's
-padded layout; the reversed-time scan through the kernel's own entry
-point, with ``gh_last`` folded into the last step and the h0 gradient;
-the VJP of the chunk-checkpointed ``wkv6_ref`` (``wkv6_ref_vjp``). The
-reference's side: ``jax.grad`` through ``repro.kernels.*.ops`` at the
+The CUDA branch is taken with each ctypes binding replaced by a stand-in
+that computes its plain version (no card here), so what is tested is
+each ``Function``'s backward: flash attention's backward binding (its
+plain version ``flash_attention_bwd_ref``, from the forward's lse); the
+reversed-time scan through the kernel's own entry point, with
+``gh_last`` folded into the last step and the h0 gradient; wkv6's
+backward binding (``wkv6_chunked_bwd_ref``). The reference's side: ``jax.grad`` through ``repro.kernels.*.ops`` at the
 shapes of ``tests/test_kernels.py``, lru_scan through its Pallas kernel
 (``interpret=True``) and analytic backward, flash attention and wkv6
 through their oracles (what their ``custom_vjp`` backwards
@@ -25,12 +25,21 @@ from repro.kernels.flash_attention.ops import attend as jattend  # noqa: E402
 from repro.kernels.lru_scan.ops import scan as jscan  # noqa: E402
 from repro.kernels.wkv6.ops import mix as jmix  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_bwd_ref, flash_attention_fwd_ref)
 from repro_torch.kernels.lru_scan import ops as lru_ops  # noqa: E402
 from repro_torch.kernels.lru_scan.ref import lru_scan_ref  # noqa: E402
 from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
-from repro_torch.kernels.wkv6.ref import wkv6_ref  # noqa: E402
+from repro_torch.kernels.wkv6.ref import (wkv6_chunked_bwd_ref,  # noqa: E402
+                                          wkv6_ref)
 
 TOL = 1e-4
+
+
+def _flash_fwd(q, k, v, causal, window, cap, lse=False):
+    o, lse_ = flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                      cap=cap)
+    return (o, lse_) if lse else o
 
 
 @pytest.fixture
@@ -38,11 +47,11 @@ def launches(monkeypatch):
     """The CUDA branch with stand-in bindings; returns the launch log."""
     log = []
     for mod, name, plain in (
-            (fa_ops, "flash_attention",
-             lambda q, k, v, causal, window, cap: fa_ops.attend_plain(
-                 q, k, v, causal, window, cap)),
+            (fa_ops, "flash_attention", _flash_fwd),
+            (fa_ops, "flash_attention_bwd", flash_attention_bwd_ref),
             (lru_ops, "lru_scan", lru_scan_ref),
-            (wkv_ops, "wkv6", wkv6_ref)):
+            (wkv_ops, "wkv6", wkv6_ref),
+            (wkv_ops, "wkv6_bwd", wkv6_chunked_bwd_ref)):
         monkeypatch.setattr(mod, "use_kernel_for", lambda x, uk: uk)
 
         def standin(*a, _plain=plain, _name=name, **kw):
@@ -90,7 +99,7 @@ def test_flash_attention_backward(case, launches):
         return (o * wt).sum()
 
     got = _torch_grads(loss, (q, k, v))
-    assert launches == ["flash_attention"]
+    assert launches == ["flash_attention", "flash_attention_bwd"]
     _close(got, _torch_grads(loss, (q, k, v), use_kernel=False), "plain")
     ref = jax.grad(lambda q_, k_, v_: jnp.sum(jattend(
         q_, k_, v_, causal=True, window=window, cap=cap, bq=bq, bk=bq,
@@ -164,7 +173,7 @@ def test_wkv6_backward(T, zero_w, launches):
 
     args = (r, k, v, w, u, s0)
     got = _torch_grads(loss, args)
-    assert launches == ["wkv6"]
+    assert launches == ["wkv6", "wkv6_bwd"]
     _close(got, _torch_grads(loss, args, use_kernel=False), "plain")
     ref = jax.grad(lambda *a: (lambda o, sT: jnp.sum(o) + jnp.sum(sT * 0.1))(
         *jmix(*a, use_pallas=False)), argnums=tuple(range(6)))(*args)

@@ -2,11 +2,13 @@
 
 Each wrapper (``ops.attend``, ``ops.scan``, ``ops.mix``) calls its
 kernel on the CUDA branch inside an ``autograd.Function``
-(``FlashAttention``, ``LruScan``, ``Wkv6``) with the reference's
-backward. The branch is taken here with the route forced and the ctypes
-binding replaced by a stand-in that computes the plain version (no
-card); the gradients under ``.backward()``, ``torch.func.grad``,
-``vjp``, ``vmap(grad)`` and ``grad(vmap)`` equal those of the plain
+(``FlashAttention``, ``LruScan``, ``Wkv6``) whose backward is a kernel
+too (flash attention's and wkv6's through their own backward bindings).
+The branch is taken here with the route forced and each ctypes binding
+replaced by a stand-in that computes the plain version (no card; a
+backward binding by the plain version's VJP); the gradients under
+``.backward()``, ``torch.func.grad``, ``vjp``, ``vmap(grad)`` and
+``grad(vmap)`` equal those of the plain
 version on the CPU route, and a vmapped call folds the vmapped axis into
 the kernel's batch axis (one launch). The CPU route still differentiates
 through the plain version. On the card, ``chip_smoke.phase_llm_train``
@@ -16,10 +18,11 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_fwd_ref
 from repro_torch.kernels.lru_scan import ops as lru_ops
 from repro_torch.kernels.lru_scan.ref import lru_scan_ref
 from repro_torch.kernels.wkv6 import ops as wkv_ops
-from repro_torch.kernels.wkv6.ref import wkv6_ref
+from repro_torch.kernels.wkv6.ref import wkv6_ref, wkv6_ref_vjp
 
 TRANSFORMS = ["backward", "grad", "vjp", "vmap(grad)", "grad(vmap)"]
 
@@ -47,11 +50,45 @@ def _inputs(requires_grad=False):
     }
 
 
+def _flash_standin(q, k, v, causal, window, cap, lse=False):
+    o = fa_ops.attend(q, k, v, causal=causal, window=window, cap=cap,
+                      use_kernel=False)
+    if not lse:
+        return o
+    return o, flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                      cap=cap)[1]
+
+
+def _flash_bwd_standin(q, k, v, o, lse, do, causal, window, cap):
+    """The plain version's VJP: the same arithmetic as the CPU route's
+    backward, so the transforms are held to it exactly."""
+    _, vjp = torch.func.vjp(lambda *x: fa_ops.attend(
+        *x, causal=causal, window=window, cap=cap, use_kernel=False), q, k, v)
+    return vjp(do)
+
+
+def _wkv6_bwd_standin(r, k, v, w, u, s0, do, ds_T):
+    """The plain version's VJP (``wkv6_ref_vjp``) batch row by batch row,
+    laid out as the binding returns it: du by row, ds0 always."""
+    rows = []
+    for b in range(r.shape[0]):
+        one = slice(b, b + 1)
+        rows.append(wkv6_ref_vjp(
+            (do[one], ds_T[one]), r[one], k[one], v[one], w[one], u,
+            None if s0 is None else s0[one]))
+    dr, dk, dv, dw = (torch.cat(x) for x in list(zip(*rows))[:4])
+    du = torch.stack([row[4] for row in rows])
+    ds0 = (torch.zeros_like(ds_T) if s0 is None
+           else torch.cat([row[5] for row in rows]))
+    return dr, dk, dv, dw, du, ds0
+
+
 STANDINS = {
-    "flash_attention": lambda q, k, v, causal, window, cap: fa_ops.attend(
-        q, k, v, causal=causal, window=window, cap=cap, use_kernel=False),
+    "flash_attention": _flash_standin,
+    "flash_attention_bwd": _flash_bwd_standin,
     "lru_scan": lru_scan_ref,
     "wkv6": wkv6_ref,
+    "wkv6_bwd": _wkv6_bwd_standin,
 }
 
 
@@ -64,12 +101,15 @@ def cuda_branch(monkeypatch):
         mod, fn_name, _, _ = _inputs()[op]
         monkeypatch.setattr(mod, "use_kernel_for",
                             lambda x, use_kernel: use_kernel)
-        plain = STANDINS[fn_name]
+        for name in (fn_name, fn_name + "_bwd"):
+            if name not in STANDINS:
+                continue
+            plain = STANDINS[name]
 
-        def standin(*a, _plain=plain, _name=fn_name, **kw):
-            launched.append(_name)
-            return _plain(*a, **kw)
-        monkeypatch.setattr(mod.kernel, fn_name, standin)
+            def standin(*a, _plain=plain, _name=name, **kw):
+                launched.append(_name)
+                return _plain(*a, **kw)
+            monkeypatch.setattr(mod.kernel, name, standin)
     return launched
 
 
