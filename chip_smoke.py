@@ -6,11 +6,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. the card: nvidia-smi name and power limit, torch and CUDA versions;
 2. the build: every hand-written kernel of the main paths
-   (flash_attention, lru_scan, wkv6 and the backwards of flash_attention
-   and wkv6), one nvcc per source, all started
-   together, with each compiler report (registers, spills), the count
-   of tensor-core instructions (HGMMA, HMMA) in each library's SASS and
-   of TMA loads (UTMALDG) in lru_scan's;
+   (flash_attention, lru_scan, wkv6 and the backwards of all three), one
+   nvcc per source, all started together, with each compiler report
+   (registers, spills), the count of tensor-core instructions (HGMMA,
+   HMMA) in each library's SASS and of TMA loads (UTMALDG) in both
+   lru_scan libraries';
 3. each kernel against its plain PyTorch version on the card, at the
    reference test cases, at shapes off the TPU kernels' block multiples
    and at the shapes the main paths give it; flash attention also on
@@ -30,7 +30,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    and bases that TMA refuses), each case printing the route it took;
 4. the main paths, each through ``repro_torch.launch.serve.main`` at full
    width and full depth with random weights from seed 0, 4 prompts of 500
-   tokens, 32 generated: StarCoder2-3B (flash attention in 30 layers),
+   tokens, 32 sampled (temperature 1, seed 3): StarCoder2-3B (flash attention in 30 layers),
    RecurrentGemma-9B (lru_scan in 26 RG-LRU layers, flash attention in 12
    local-attention layers), RWKV-6-7B (wkv6 in 32 layers, prefill and
    every decode step), Gemma-2-27B (flash in 46 layers), H2O-Danube3-4B
@@ -48,8 +48,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    read just after; then per prefill and per decode step. The prefill
    logits are held against the same weights run with the plain versions
    (for RWKV-6 beside the distance a reordering of the plain wkv6's sum
-   alone makes), a sampled run is repeated to show its tokens do not
-   change, the full-width model in fp32 is held against its plain-version
+   alone makes), the launcher is run again to show its sampled tokens do
+   not change, the full-width model in fp32 is held against its plain-version
    run (Gemma-2 at 2 layers: 46 take 82.4 GB in fp32; Qwen2-VL at 2,
    whose 8 take 38.0 GB, to keep the phase short), and a reduced fp32
    config is held against the CPU run of the same weights. For the MoE
@@ -70,21 +70,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    configuration (catch, mlp, rmsprop, alpha 4, n_envs 4, seed 3, 3
    intervals) for a2c, ppo and vtrace the card's reward/done streams
    equal the port's CPU run of the same params and the params are within
-   1e-5; ``examples/specs/quickstart.json`` (20 of its 40 intervals)
+   1e-5; ``examples/specs/quickstart.json`` (10 of its 40 intervals)
    runs twice on the card bit-identically, its host and device env
-   backends give equal streams, and a K=2 run applies 20 updates; the
+   backends give equal streams, and a K=2 run applies 10 updates; the
    device backend at n_envs 1024 (alpha 8, 10 intervals)
    gives env steps/s with a warm-up run excluded, and a profile window
-   of 3 intervals the device busy share and each stream's kernel time;
+   of 1 interval the device busy share and each stream's kernel time;
    the paper CNN at
    its published widths runs one ``actor_forward`` and one learner pass
    on a synthetic trajectory (alpha 5, n_envs 16, (84, 84, 4)), held
    against the port's CPU at 1e-4 relative, with times. The path
    launches none of the port's kernels, and the counts say so;
 7. the entry point (``phase_run``): ``python -m repro_torch.launch.run
-   --spec examples/specs/quickstart.json`` with no other flag; then with
-   ``--ckpt-dir --ckpt-every 5 --intervals 10`` and again with
-   ``--resume --intervals 20``, whose last checkpoint (the reference's
+   --spec examples/specs/quickstart.json`` with no other flag; then its
+   ``main`` in this process with ``--ckpt-dir --ckpt-every 5 --intervals
+   10`` and again with ``--resume --intervals 20``, whose last checkpoint (the reference's
    file format) equals an uninterrupted ``Session.fit(20)`` on the card:
    every capsule leaf ``torch.equal``, the episode-return stream equal; a
    fit under a fault plan (the checkpoint at 10 truncated, the segment
@@ -96,16 +96,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    CPU (TF32 off): streams exact, params within 1e-5 (the atari_a2c CNN:
    its first learner pass's gradients within 1e-4 relative, its params'
    distance printed); the device-backend gridmaze at n_envs 1024, env
-   steps/s over 3 runs after a warm-up; ``python -m repro_torch.launch.run
-   --spec examples/specs/football_ppo.json --intervals 10`` (the
+   steps/s over 2 runs after a warm-up; ``python -m repro_torch.launch.run
+   --spec examples/specs/football_ppo.json --intervals 4`` (the
    mini-football drill, ppo, the threaded host runtime) and its first 4
    intervals card against CPU: streams exact, params within 1e-5. The
    launch counts of the port's kernels over all of that stay 0 (the
    kernels' backwards are held in phase 10 (a));
 8. the threaded host runtime and the baselines (``phase_host``): (a)
-   ``python -m repro_torch.launch.run --spec
-   examples/specs/quickstart.json --runtime host`` checkpointed and
-   stopped at 10 and resumed to 20 as typed, whose last
+   the launcher's ``main(["--spec", "examples/specs/quickstart.json",
+   "--runtime", "host", ...])`` in this process, checkpointed and
+   stopped at 10 and resumed to 20, whose last
    checkpoint equals the ``mesh`` runtime's ``Session.fit(20)`` leaf for
    leaf with the same episode-return stream; (b) host == mesh on the card
    (``torch.equal``) at K 1 and 2, with 1 and 4 actors, with and without
@@ -130,10 +130,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    port's kernels launch 0 times over all of it.
 9. data parallelism, serving and tenancy (``phase_scale``): (a)
    ``python -m repro_torch.launch.distributed --spec
-   examples/specs/quickstart.json`` as two ranks on the one card (the
-   default backend is then gloo, and the gradient sums travel through
-   the host) and as one rank (nccl): every rank's params digest equals
-   the 1-process ``mesh`` run's; ``examples/atari_a2c.py``'s workload
+   examples/specs/quickstart.json --intervals 10`` as two ranks on the
+   one card (the default backend is then gloo, and the gradient sums
+   travel through the host) and as one rank (nccl), the three processes
+   started together: every rank's params digest equals the 1-process
+   ``mesh`` run's; ``examples/atari_a2c.py``'s workload
    (the paper CNN's widths on gridmaze) sharded over two processes at
    grad_accumulation 1 and 2, a ``mesh`` capsule continued on two ranks
    and a two-rank capsule continued on ``mesh``, each ``torch.equal``
@@ -151,21 +152,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    index. The port's kernels launch 0 times in this process over all of
    it;
 10. LLM-policy training (``phase_llm_train``): (a) each kernel's backward
-   (flash attention and wkv6: their hand-written backward kernels,
-   flash's from the lse its forward writes; lru_scan: the kernel again
-   on reversed time) under ``.backward()`` and ``torch.func.grad``
+   (its hand-written backward kernel; flash's from the lse its forward
+   writes; lru_scan's also ``torch.equal`` to its plain version
+   ``lru_scan_bwd_ref``) under ``.backward()`` and ``torch.func.grad``
    against autograd of the plain version on the card, at 1e-4 (fp32) and
    3e-2 (bf16), and ``.backward()`` twice on the same inputs for
    ``torch.equal`` gradients (no atomics): the reference grad tests'
    shapes, shapes off the block multiples, soft-cap, GQA, window, every
    bf16 head dim, fp32, Sq != Sk, ``kv_len`` through the bindings, every
-   arch's attention at its training shape, h0 or none, a cotangent on
-   h_last, mixed dtypes, wkv6 at T 1, 31, 32, 33, 512 with w = 0, N 8
-   and 16 and RWKV-6's (4, 512, 64, 64), each printing its route and its
-   backward-kernel launches; each backward's time at its training shape
-   against its plain version's, SDPA's backward (flash) and a bound, the
-   flash backward kernel alone at every arch's training shape, and the
-   forward with and without its lse; (b) ``python -m
+   arch's attention at its training shape, lru_scan at S 1, 33 and a D
+   that TMA refuses, h0 or none, a cotangent on h_last, mixed dtypes,
+   wkv6 at T 1, 31, 32, 33, 512 with w = 0, N 8 and 16 and RWKV-6's (4,
+   512, 64, 64), each printing its route and its backward-kernel
+   launches; each backward's time at its training shape against its
+   plain version's, SDPA's backward (flash) and a bound, the flash
+   backward kernel alone at every arch's training shape beside SDPA's
+   backward wherever SDPA computes the same function, the lru_scan
+   backward kernel alone beside a same-traffic elementwise op, and the
+   flash forward with and without its lse; (b) ``python -m
    repro_torch.launch.train --arch starcoder2-3b --steps 3 --batch 4
    --seq 512`` as typed (full width and depth: 30 layers, d_model 3072,
    bf16, Adam): finite losses, ms per step and tokens/s after the first
@@ -175,8 +179,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    load-balance loss nonzero; (c) RecurrentGemma-9B (3 layers) and
    RWKV-6-7B (2 layers) at full width through ``python -m
    repro_torch.launch.run --spec``, with their launches per step
-   (lru_scan 6, flash 2 and its backward 1; wkv6 4 and its backward
-   2), then the first step's loss and every gradient leaf, kernels
+   (lru_scan 4 and its backward 2, flash 2 and its backward 1; wkv6 4
+   and its backward 2), then the first step's loss and every gradient leaf, kernels
    against plain versions on the card, in bf16 and in fp32: the loss at
    3e-2 (bf16) and 1e-4 (fp32), each leaf's relative L2 distance printed
    (RWKV-6's beside a witness with the kernel's rounding) and the
@@ -400,8 +404,10 @@ WKV_EDGE = [(2, T, 4, 64, dt) for T in (31, 32, 33, 500)
             for dt in (torch.float32, torch.bfloat16)]
 
 BATCH, PROMPT, GEN = 4, 500, 32
-# steady-state serving runs timed per path
-SERVE_RUNS = 2
+# the launcher's sampling, so that its run is also the first of the two
+# that must give the same tokens; the second, warm, is the path's timed
+# steady-state run
+SAMPLE_ARGS = ("--temperature", "1.0", "--seed", "3")
 # flash kernel vs plain version: tests/test_kernels.py's tolerances. In
 # bf16 the kernel, as the TPU kernel, rounds P to bf16 before P V; the
 # plain version keeps it in fp32
@@ -423,17 +429,24 @@ SOURCES = {
                             "src/repro/kernels/flash_attention/ops.py:41"),
     "wkv6_bwd": ("src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",
                  "src/repro/kernels/wkv6/ops.py:31"),
+    # the reference's analytic backward: the forward kernel on reversed
+    # time (no Pallas backward of its own)
+    "lru_scan_bwd": ("src/repro_torch/kernels/lru_scan/csrc/lru_scan_bwd.cu",
+                     "src/repro/kernels/lru_scan/ops.py:36"),
 }
 # kernel -> (its module in kernel_modules(), its launch counter there)
 COUNTERS = {"flash_attention": ("flash_attention", "launches"),
             "lru_scan": ("lru_scan", "launches"),
             "wkv6": ("wkv6", "launches"),
             "flash_attention_bwd": ("flash_attention", "bwd_launches"),
-            "wkv6_bwd": ("wkv6", "bwd_launches")}
+            "wkv6_bwd": ("wkv6", "bwd_launches"),
+            "lru_scan_bwd": ("lru_scan", "bwd_launches")}
 
-# kernels whose libraries must hold tensor-core instructions
+# kernels whose libraries must hold tensor-core instructions, and those
+# that must hold TMA loads
 TENSOR_CORE_KERNELS = ("flash_attention", "wkv6", "flash_attention_bwd",
                        "wkv6_bwd")
+TMA_KERNELS = ("lru_scan", "lru_scan_bwd")
 
 # arch -> launches expected (in serve.main: prefill + GEN-1 decode steps,
 # per prefill, per decode step); kernels not named must launch 0 times.
@@ -482,12 +495,15 @@ GOLDEN = dict(alpha=4, n_envs=4, seed=3)
 GOLDEN_INTERVALS = 3
 PARAMS_TOL = 1e-5            # card vs CPU, the goldens' final params
 QUICKSTART = ROOT / "examples" / "specs" / "quickstart.json"
-# the quickstart spec's runs here: half its 40 intervals, to keep the
-# whole script inside its time limit
-QUICKSTART_INTERVALS = 20
+# the quickstart spec's runs here and the distributed launcher's: a
+# quarter of its 40 intervals, to keep the whole script inside its time
+# limit
+QUICKSTART_INTERVALS = DISTRIBUTED_INTERVALS = 10
 SCALE = dict(alpha=8, n_envs=1024, intervals=10)
+# timed runs after a warm-up run at that scale
+TIMED_RUNS = 2
 # the profiled window at that scale (about 14,000 kernels an interval)
-PROFILE_INTERVALS = 3
+PROFILE_INTERVALS = 1
 CNN_TRAJ = dict(alpha=5, n_envs=16)
 CNN_REL_TOL = 1e-4           # card vs CPU, paper CNN at fp32, TF32 off
 
@@ -513,11 +529,10 @@ GRIDMAZE_CNNS = {
                                                 "hidden": 128}},
 }
 GRIDMAZE_SCALE = dict(alpha=8, n_envs=1024, intervals=10)
-# the football spec's launcher run (10 of its 40 intervals: the threaded
+# the football spec's launcher run (4 of its 40 intervals: the threaded
 # host runtime with the spec's step-time model takes 44.6 s for 40 on an
 # H100) and its intervals held card vs CPU
-FOOTBALL_LAUNCH_INTERVALS = 10
-FOOTBALL_INTERVALS = 4
+FOOTBALL_LAUNCH_INTERVALS = FOOTBALL_INTERVALS = 4
 
 # the host runtime and the baselines (phase_host): intervals of the
 # host == mesh cells; the football spec's step-time model (shape 1, rate
@@ -525,7 +540,7 @@ FOOTBALL_INTERVALS = 4
 # (gridmaze, its CNN, rmsprop, alpha 5, n_envs 8) and the host runtime as
 # a fourth, with their interval count; the rate runs' intervals; the
 # pipeline runs' intervals
-HOST_N = 4
+HOST_N = 3
 FOOTBALL = ROOT / "examples" / "specs" / "football_ppo.json"
 ATARI_SPEC = {
     "env": {"name": "gridmaze"},
@@ -544,7 +559,8 @@ ATARI_CONTENDERS = {
 ATARI_INTERVALS = 6
 MEM_SHORT, MEM_LONG = 3, 15          # host runtime's memory, intervals
 RATE_INTERVALS = 6
-PIPE_INTERVALS = 6
+RATE_RUNS = 1                        # timed runs after a warm-up
+PIPE_INTERVALS = 4
 
 # data parallelism, serving and tenancy (phase_scale): the sharded CNN
 # runs' intervals (a capsule handed over at half of them); the serving
@@ -564,7 +580,10 @@ POOL_A = ROOT / "examples" / "specs" / "pool_a.json"
 # (FLASH_KV_LEN); lru_scan at the reference
 # grad test's shape with and without h0, off the blocks, in bf16, with
 # mixed dtypes and at RecurrentGemma's (4, 512, 4096); wkv6 at T 1, 31,
-# 32, 33, 512 with a tenth of w = 0, and at RWKV-6's (4, 512, 64, 64)
+# 32, 33, 512 with a tenth of w = 0, and at RWKV-6's (4, 512, 64, 64).
+# lru_scan's backward kernel also against its plain version, bit for bit:
+# at S 1 and 33 (one step; a ragged last tile) and at D 45 (180-byte rows,
+# which TMA refuses: the per-thread kernel)
 TRAIN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 MAIN_TRAIN = (4, 512, 24, 2, 128, True, 0, 0.0, 128, 128, torch.bfloat16)
 RG_TRAIN = (4, 512, 16, 1, 256, True, 2048, 0.0, 128, 128, torch.bfloat16)
@@ -593,6 +612,9 @@ TRAIN_LRU = [((2, 32, 8, torch.float32), True),
              ((3, 300, 600, torch.bfloat16), True),
              ((2, 70, 136, torch.float32, torch.bfloat16), True),
              ((2, 70, 136, torch.bfloat16, torch.float32), False),
+             ((2, 1, 136, torch.float32), True),
+             ((2, 33, 200, torch.float32), False),
+             ((2, 50, 45, torch.float32), True),
              (LRU_TRAIN, False)]
 WKV_TRAIN = (4, 512, 64, 64, torch.bfloat16)
 TRAIN_WKV = [((2, T, 4, 64, torch.float32), "zero")
@@ -610,7 +632,7 @@ LLM_TRAIN = {"starcoder2-3b": 60, "granite-moe-1b-a400m": 48}
 # lru_scan forward, recompute and backward in 2 layers, flash forward
 # and recompute in 1 and its backward kernel; RWKV-6: wkv6 forward and
 # recompute in 2 layers, and its backward kernel in each
-LLM_SPEC_RUNS = {"recurrentgemma-9b": (3, {"lru_scan": 6,
+LLM_SPEC_RUNS = {"recurrentgemma-9b": (3, {"lru_scan": 4, "lru_scan_bwd": 2,
                                            "flash_attention": 2,
                                            "flash_attention_bwd": 1}),
                  "rwkv6-7b": (2, {"wkv6": 4, "wkv6_bwd": 2})}
@@ -658,7 +680,7 @@ FLASH_BOTH = ("flash_attention", "flash_attention_bwd")
 LLM_CARD_CPU = {
     "starcoder2-3b": ("starcoder2-3b", {}, FLASH_BOTH),
     "recurrentgemma-9b": ("recurrentgemma-9b", {},
-                          ("lru_scan",) + FLASH_BOTH),
+                          ("lru_scan", "lru_scan_bwd") + FLASH_BOTH),
     "rwkv6-7b": ("rwkv6-7b", {}, ("wkv6", "wkv6_bwd")),
     "granite-moe-1b-a400m": ("granite-moe-1b-a400m", {}, FLASH_BOTH),
     "granite-moe-1b-a400m dropless": ("granite-moe-1b-a400m",
@@ -705,6 +727,28 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
 
 
+def laps(tag: str):
+    """A function that prints, under ``tag``, the seconds since its last
+    call (the first: since ``laps``): a phase's parts where they are
+    stretches of one function."""
+    last = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        print(f"{tag}: part {name}: {now - last[0]:.1f} s", flush=True)
+        last[0] = now
+    return lap
+
+
+def part(tag: str, name: str, fn, *args):
+    """``fn(*args)``, its seconds printed under the phase's tag: where the
+    script's time limit goes, part by part."""
+    lap = laps(tag)
+    out = fn(*args)
+    lap(name)
+    return out
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -732,6 +776,7 @@ def zero_launches() -> None:
     for mod, attr in COUNTERS.values():
         setattr(mods[mod], attr, 0)
     mods["lru_scan"].tma_launches = 0
+    mods["lru_scan"].bwd_tma_launches = 0
 
 
 def read_launches() -> dict:
@@ -957,35 +1002,37 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
-    """One nvcc per source, all started together."""
+    """One nvcc per source, all started together; then each library's
+    SASS read, all together too."""
     def build(item):
         name, load = item
         t0 = time.perf_counter()
         lib = load()
-        return name, time.perf_counter() - t0, Path(lib._name)
+        path = Path(lib._name)
+        return (name, time.perf_counter() - t0, path,
+                sass_count(path, "HGMMA|HMMA"),
+                sass_count(path, "UTMALDG") if name in TMA_KERNELS else None)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         built = list(pool.map(build, kernel_libraries().items()))
     print(f"build: {len(built)} libraries in "
           f"{time.perf_counter() - t0:.1f}s (in parallel)")
-    for name, secs, path in built:
+    for name, secs, path, _, _ in built:
         print(f"build: {Path(SOURCES[name][0]).name} by nvcc for sm_90a in "
               f"{secs:.1f}s -> {path.name}")
         log = path.with_suffix(".log")
         if log.exists():
             print(log.read_text().strip())
-    for name, _, path in built:
-        n = sass_count(path, "HGMMA|HMMA")
-        print(f"sass: {path.name}: {n} tensor-core instructions "
+    for name, _, path, n_mma, n_tma in built:
+        print(f"sass: {path.name}: {n_mma} tensor-core instructions "
               "(cuobjdump -sass | grep -cE 'HGMMA|HMMA')")
         if name in TENSOR_CORE_KERNELS:
-            check(n > 0, f"{name}: no HGMMA/HMMA in its SASS")
-        if name == "lru_scan":
-            n = sass_count(path, "UTMALDG")
-            print(f"sass: {path.name}: {n} TMA loads (cuobjdump -sass | "
+            check(n_mma > 0, f"{name}: no HGMMA/HMMA in its SASS")
+        if name in TMA_KERNELS:
+            print(f"sass: {path.name}: {n_tma} TMA loads (cuobjdump -sass | "
                   "grep -c UTMALDG)")
-            check(n > 0, "lru_scan: no UTMALDG in its SASS")
+            check(n_tma > 0, f"{name}: no UTMALDG in its SASS")
 
 
 def sass_count(lib: Path, opcodes: str) -> int:
@@ -1328,10 +1375,13 @@ def phase_serve(arch: str) -> dict:
 
     main_expect, prefill_expect, step_expect = SERVE_PATHS[arch]
     argv = ["--arch", arch, *SERVE_ARGS.get(arch, ()), "--batch",
-            str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(GEN)]
+            str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(GEN),
+            *SAMPLE_ARGS]
+    lap = laps(f"serve {arch}")
     zero_launches()
     res = serve.main(argv)
     launches = read_launches()
+    lap("the launcher")
     # every lru_scan launch of the run took the TMA kernel
     lru_tma = kernel_modules()["lru_scan"].tma_launches
     check(lru_tma == launches["lru_scan"],
@@ -1395,13 +1445,7 @@ def phase_serve(arch: str) -> dict:
     if arch == "rwkv6-7b":
         wkv_order_witness(res.model, plain_cfg, res.prompts, plain_logits)
 
-    prefill_ms, tok_s = [], []
-    modal = {k: v for k, v in kw.items() if k != "mrope_positions"}
-    for _ in range(SERVE_RUNS):
-        _, _, p_s, d_s = serve.generate(res.model, cfg, res.prompts, GEN,
-                                        **modal)
-        prefill_ms.append(p_s * 1e3)
-        tok_s.append(B * (GEN - 1) / d_s)
+    lap("launches and prefills, kernels vs plain")
     with torch.inference_mode():
         profile_window(f"{arch} prefill", lambda: backbone.prefill(
             res.model, cfg, res.prompts, S + GEN, **kw))
@@ -1413,17 +1457,19 @@ def phase_serve(arch: str) -> dict:
             backbone.decode_step(res.model, cfg, tok, cache, S + i,
                                  **steps[i])
             for i in range(4)])
+    lap("profiles")
+    tokens = res.tokens.clone()
     del res, plain_logits, k_logits, cache, steps, step_kw
     _free_cuda()
 
-    tokens = []
-    for _ in range(2):
-        run = serve.main(argv + ["--temperature", "1.0", "--seed", "3"])
-        tokens.append(run.tokens.clone())
-        del run
-        _free_cuda()
-    check(torch.equal(*tokens), f"{arch} sampled rerun gave other tokens")
+    run = serve.main(argv)
+    check(torch.equal(run.tokens, tokens),
+          f"{arch} sampled rerun gave other tokens")
+    prefill_ms, tok_s = run.prefill_s * 1e3, B * (GEN - 1) / run.decode_s
+    del run
+    _free_cuda()
     print(f"{arch} sampled rerun (temperature 1.0, seed 3): identical tokens")
+    lap("the launcher again")
 
     fp32_cfg = dataclasses.replace(
         cfg, dtype="float32", n_layers=FP32_LAYERS.get(arch, cfg.n_layers))
@@ -1450,6 +1496,7 @@ def phase_serve(arch: str) -> dict:
     check(rel32 < 1e-3, f"{arch} fp32 prefill logits vs plain versions")
     del big, k_logits, p_logits
     _free_cuda()
+    lap("fp32 at full width")
 
     small_cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
     small, prompts = serve.build(small_cfg, 2, 150, torch.device("cuda"))
@@ -1476,6 +1523,7 @@ def phase_serve(arch: str) -> dict:
     check(err < 1e-4 and same, f"{arch} reduced model: card vs CPU")
     del small
     _free_cuda()
+    lap("reduced, card vs CPU")
     return {"launches": launches, "lru_scan_tma": lru_tma,
             "prefill_ms": prefill_ms, "tok_s": tok_s, "routing": routing}
 
@@ -1669,17 +1717,12 @@ def _path_launches(name: str, runs: dict, llm: dict) -> dict:
 def _entry(name: str, runs: dict, err: float, times: list,
            llm: dict) -> dict:
     """A forward kernel's row of the ``{"kernels": ...}`` line.
-    ``launches`` sums the main paths' runs (``_path_launches``);
-    lru_scan's backward (the same kernel) adds its time at its training
-    shape and the largest error of phase 10 (a)."""
+    ``launches`` sums the main paths' runs (``_path_launches``)."""
     by_path = _path_launches(name, runs, llm)
     first = times[0]
     extra = {}
     if name == "lru_scan":
-        extra = {"backward": llm["backward_times"][name],
-                 "backward_max_abs_err": max(
-                     row["max_abs_err"] for row in llm["backward"][name]),
-                 "launches_tma": sum(run.get("lru_scan_tma", 0)
+        extra = {"launches_tma": sum(run.get("lru_scan_tma", 0)
                                      for run in runs.values())
                  + sum(fam["lru_scan_tma"]
                        for fam in llm["families"].values())}
@@ -1696,18 +1739,28 @@ def _entry(name: str, runs: dict, err: float, times: list,
 
 
 def _bwd_entry(name: str, runs: dict, llm: dict) -> dict:
-    """A backward kernel's row: its time at its training shape (the
-    ``Function``'s backward, ``_bwd_times``) beside the bound, the plain
+    """A backward kernel's row: its time at its training shape
+    (``_bwd_times``: the ``Function``'s backward; for lru_scan the kernel
+    alone, the ``Function``'s beside it) beside the bound, the plain
     version's backward and the library's; the largest error of phase 10
     (a); launches on the training paths."""
     fwd = name[:-len("_bwd")]
     t = llm["backward_times"][fwd]
     by_path = _path_launches(name, runs, llm)
+    extra = {k: t[k] for k in ("function_ms", "plain_autograd_ms",
+                               "same_traffic_ms") if k in t}
+    err = max(row["max_abs_err"] for row in llm["backward"][fwd])
+    if name == "lru_scan_bwd":
+        # the kernel against its own plain version (lru_scan_bwd_ref); the
+        # Function's against autograd of the plain forward beside it
+        extra["launches_tma"] = sum(fam["lru_scan_bwd_tma"]
+                                    for fam in llm["families"].values())
+        extra["function_max_abs_err"] = err
+        err = max(row["bwd_max_abs_err"] for row in llm["backward"][fwd])
     return {"name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": max(row["max_abs_err"]
-                               for row in llm["backward"][fwd]),
+            **extra, "max_abs_err": err,
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
             "shape": t["shape"], "other_shapes": t.get("other_shapes", [])}
@@ -1820,14 +1873,14 @@ def _train_quickstart(smi: str) -> dict:
 
 
 def _timed_runs(rt, n: int, what: str) -> list:
-    """A warm-up run (excluded), then 3 runs of ``n`` intervals, each
-    applying n updates and all giving the same streams."""
-    rt.run(n)
-    runs = [rt.run(n) for _ in range(3)]
+    """A warm-up run, then TIMED_RUNS runs of ``n`` intervals, each
+    applying n updates and all giving the same streams; the timed runs
+    returned."""
+    runs = [rt.run(n) for _ in range(1 + TIMED_RUNS)]
     check(all(int(r.state.step) == n for r in runs), f"{what}: step")
     check(all(_same_streams(runs[0], r) for r in runs[1:]),
           f"{what}: reruns differ")
-    return runs
+    return runs[1:]
 
 
 def _train_scale(smi: str) -> dict:
@@ -1841,7 +1894,7 @@ def _train_scale(smi: str) -> dict:
     print(f"train scale times on {smi}: device backend, mlp, alpha "
           f"{SCALE['alpha']} x {SCALE['n_envs']} envs x {n} intervals "
           f"({n * SCALE['alpha'] * SCALE['n_envs']} env steps a run): env "
-          "steps/s (3 runs after a warm-up run) "
+          f"steps/s ({TIMED_RUNS} runs after a warm-up run) "
           + ", ".join(f"{x:.1f}" for x in sps) + "; ms per interval "
           + ", ".join(f"{1e3 * r.wall_time / n:.2f}" for r in runs))
     prof = profile_window(
@@ -1950,16 +2003,17 @@ def phase_train() -> dict:
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            res = {"golden": _train_golden(),
-                   "quickstart": _train_quickstart(smi)}
+            res = {"golden": part("train", "golden", _train_golden),
+                   "quickstart": part("train", "quickstart",
+                                      _train_quickstart, smi)}
     finally:
         torch.use_deterministic_algorithms(False)
     flagged = sorted({str(w.message).splitlines()[0][:160] for w in caught
                       if "deterministic" in str(w.message)})
     print("train: ops without a deterministic implementation, used in the "
           "goldens and quickstart runs: " + ("; ".join(flagged) or "none"))
-    res["scale"] = _train_scale(smi)
-    res["cnn"] = _train_cnn(smi)
+    res["scale"] = part("train", "scale", _train_scale, smi)
+    res["cnn"] = part("train", "cnn", _train_cnn, smi)
     launches = read_launches()
     print(f"train: launches of the port's kernels on the training path "
           f"{launches}")
@@ -1971,21 +2025,16 @@ def phase_train() -> dict:
 
 # --------------------------------------------------------- entry point
 def _launcher(args: list, what: str, tag: str) -> str:
-    """``python -m repro_torch.launch.run ARGS`` from the checkout, as a
-    user runs it; its output printed, a non-zero exit a failure."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    """``repro_torch.launch.run.main(ARGS)`` in this process (the code a
+    user's ``python -m repro_torch.launch.run ARGS`` runs, from the argv
+    on, without a new process's start-up); its output printed and
+    returned."""
+    from repro_torch.launch import run
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.run", *args], cwd=ROOT,
-        env=env, capture_output=True, text=True, timeout=600)
-    print(f"{tag}: {what}: python -m repro_torch.launch.run "
-          f"{' '.join(args)} -> exit {proc.returncode} in "
-          f"{time.perf_counter() - t0:.1f}s")
-    for line in proc.stdout.splitlines():
-        print(f"  | {line}")
-    check(proc.returncode == 0,
-          f"launcher ({what}) exited {proc.returncode}: {proc.stderr[-3000:]}")
-    return proc.stdout
+    out = "\n".join(_captured(run.main, args))
+    print(f"{tag}: {what}: repro_torch.launch.run.main({args}) in this "
+          f"process -> returned in {time.perf_counter() - t0:.1f}s")
+    return out
 
 
 def _capsules_equal(a, b) -> bool:
@@ -2014,13 +2063,13 @@ def _fail_segment_once(session, at: int):
     return session
 
 
-def _run_launcher(tmp: Path, runtime: str = "mesh",
-                  typed: bool = True) -> dict:
-    """(a) of phase_run and of phase_host: the launcher as typed (with
-    ``--runtime`` where the spec's is not the one asked for; ``typed``
-    False leaves that run out, where the checkpointed pair below already
-    launches the same command), then stopped and resumed, against the
-    ``mesh`` runtime's uninterrupted ``Session.fit`` on the card."""
+def _run_launcher(tmp: Path, runtime: str = "mesh") -> dict:
+    """(a) of phase_run and of phase_host: the launcher (with
+    ``--runtime`` where the spec's is not the one asked for) stopped and
+    resumed, against the ``mesh`` runtime's uninterrupted ``Session.fit``
+    on the card. Both runs are the launcher's ``main`` in this process:
+    the resume reads nothing but the checkpoint, and a new process would
+    add only its start-up (phase_run runs the launcher as typed)."""
     from repro_torch import api
     from repro_torch.checkpoint import io as ckpt_io
     from repro_torch.core import trainer
@@ -2028,11 +2077,6 @@ def _run_launcher(tmp: Path, runtime: str = "mesh",
     spec = api.load(str(QUICKSTART))
     pick = [] if runtime == spec.runtime.name else ["--runtime", runtime]
     tag = "run" if runtime == "mesh" else "host"     # the phase's prefix
-    if typed:
-        _launcher(["--spec", quick, *pick],
-                  "the quickstart spec" + (f" on the {runtime} runtime"
-                                           if pick else ", no other flag"),
-                  tag)
     ck = tmp / f"{runtime}_launcher"
     common = ["--spec", quick, *pick, "--ckpt-dir", str(ck), "--ckpt-every",
               str(RUN_EVERY)]
@@ -2115,9 +2159,8 @@ def _first_grads_err(session) -> float:
     return max(_rel(card[k], cpu[k]) for k in cpu)
 
 
-def _run_gridmaze(smi: str) -> dict:
-    """(c) and (d): gridmaze card vs CPU on both backends, mlp and CNNs;
-    the device backend's rate at n_envs 1024."""
+def _gridmaze_cells() -> dict:
+    """(c): gridmaze card vs CPU on both backends, mlp and CNNs."""
     from repro_torch import api
     base = api.load(str(POOL_B))
     n = base.intervals
@@ -2167,6 +2210,13 @@ def _run_gridmaze(smi: str) -> dict:
                     [p.flatten() for p in card.params.values()])).all()),
                       f"gridmaze {pol_name} {backend}: params not finite")
             rows[f"{pol_name}-{backend}"] = row
+    return rows
+
+
+def _gridmaze_scale(smi: str) -> list:
+    """(d): the device backend's rate at n_envs 1024."""
+    from repro_torch import api
+    base = api.load(str(POOL_B))
     g = GRIDMAZE_SCALE
     rt = build_session(base, "cuda", env_backend="device", alpha=g["alpha"],
                        n_envs=g["n_envs"]).runtime
@@ -2175,14 +2225,14 @@ def _run_gridmaze(smi: str) -> dict:
     print(f"run: gridmaze scale times on {smi}: device backend, "
           f"{base.policy.name}, {base.algorithm}, K="
           f"{base.hts['staleness']}, alpha {g['alpha']} x {g['n_envs']} envs "
-          f"x {g['intervals']} intervals: env steps/s (3 runs after a "
-          "warm-up run) " + ", ".join(f"{x:.1f}" for x in sps))
-    return {"cells": rows, "scale_sps": sps}
+          f"x {g['intervals']} intervals: env steps/s ({TIMED_RUNS} runs "
+          "after a warm-up run) " + ", ".join(f"{x:.1f}" for x in sps))
+    return sps
 
 
 def _run_football(smi: str) -> dict:
     """(e): ``python -m repro_torch.launch.run --spec
-    examples/specs/football_ppo.json --intervals 10`` (``main`` in this
+    examples/specs/football_ppo.json --intervals 4`` (``main`` in this
     process: the mini-football drill, ppo, the threaded host runtime with
     2 actors and its step-time model); then the spec's first
     FOOTBALL_INTERVALS on the card against the port's CPU: streams exact,
@@ -2221,12 +2271,27 @@ def phase_run() -> dict:
     import tempfile
     smi = nvidia_smi()
     zero_launches()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as d:
-        tmp = Path(d)
-        launcher = _run_launcher(tmp)
-        faults = _run_faults(tmp, launcher.pop("straight"))
-    gridmaze = _run_gridmaze(smi)
-    football = _run_football(smi)
+    # the launcher as typed runs in a process of its own beside the
+    # checks below that time nothing; it is waited for before the timed
+    # runs
+    typed = _started([["-m", "repro_torch.launch.run", "--spec",
+                       str(QUICKSTART.relative_to(ROOT))]])
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as d:
+            tmp = Path(d)
+            launcher = part("run", "launcher", _run_launcher, tmp)
+            faults = part("run", "faults", _run_faults, tmp,
+                          launcher.pop("straight"))
+        cells = part("run", "gridmaze", _gridmaze_cells)
+    finally:
+        # waited for in every case: no process outlives the phase
+        part("run", "the launcher as typed (its wait)", _waited, typed,
+             "the quickstart spec, no other flag (beside the checks above)",
+             "run")
+    gridmaze = {"cells": cells,
+                "scale_sps": part("run", "gridmaze scale", _gridmaze_scale,
+                                  smi)}
+    football = part("run", "football", _run_football, smi)
     launches = read_launches()
     print(f"run: launches of the port's kernels on the entry point's paths "
           f"{launches}")
@@ -2465,14 +2530,15 @@ def _host_rates(smi: str) -> dict:
     sps = {}
     for name in ("host", "mesh", "sync", "async"):
         rt = build_session(base.replace(runtime=name), "cuda").runtime
-        rt.run(n)                                   # warm-up, excluded
-        runs = [rt.run(n) for _ in range(3)]
+        # a warm-up run, excluded from the rates
+        runs = [rt.run(n) for _ in range(1 + RATE_RUNS)]
         check(all(_same_streams(runs[0], r) for r in runs[1:]),
               f"rates {name}: reruns differ")
-        sps[name] = [r.sps for r in runs]
+        sps[name] = [r.sps for r in runs[1:]]
     print(f"host: rates on {smi}: quickstart spec (catch, mlp, a2c, alpha "
           f"{base.hts['alpha']} x {base.hts['n_envs']} envs) x {n} "
-          "intervals, env steps/s (3 runs after a warm-up): " + "; ".join(
+          f"intervals, env steps/s ({RATE_RUNS} runs after a warm-up): "
+          + "; ".join(
               f"{k} " + ", ".join(f"{x:.1f}" for x in v)
               for k, v in sps.items()))
     prof = build_session(base.replace(runtime={
@@ -2538,15 +2604,15 @@ def phase_host() -> dict:
     zero_launches()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as d:
         tmp = Path(d)
-        # the host launcher's stop and resume are its typed runs: the
-        # plain 40-interval run would repeat them
-        launcher = _run_launcher(tmp, "host", typed=False)
+        launcher = part("host", "launcher", _run_launcher, tmp, "host")
         launcher.pop("straight")
-        res = {"launcher": launcher, "faults": _host_faults(tmp)}
-    res["host_equals_mesh"] = _host_equals_mesh()
-    res["atari_a2c"] = _atari_contenders()
-    res["memory"] = _host_memory()
-    res["rates"] = _host_rates(smi)
+        res = {"launcher": launcher,
+               "faults": part("host", "faults", _host_faults, tmp)}
+    res["host_equals_mesh"] = part("host", "host_equals_mesh",
+                                   _host_equals_mesh)
+    res["atari_a2c"] = part("host", "atari_a2c", _atari_contenders)
+    res["memory"] = part("host", "memory", _host_memory)
+    res["rates"] = part("host", "rates", _host_rates, smi)
     launches = read_launches()
     print(f"host: launches of the port's kernels on the host runtime and "
           f"baselines paths {launches}")
@@ -2566,14 +2632,26 @@ def _free_port() -> int:
 
 def _processes(argvs: list, what: str, tag: str) -> list:
     """``python ARGV`` for each argv, all started together from the
-    checkout, as a user starts them; their output printed, a non-zero
-    exit or a hang past 600 s a failure. Every process is waited for (or
-    killed) before this returns."""
+    checkout, as a user starts them, and waited for (``_started``,
+    ``_waited``)."""
+    return _waited(_started(argvs), what, tag)
+
+
+def _started(argvs: list) -> tuple:
+    """``python ARGV`` for each argv, all started together from the
+    checkout, as a user starts them; ``_waited`` ends them."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for argv in argvs]
+    return argvs, procs, time.perf_counter()
+
+
+def _waited(started: tuple, what: str, tag: str) -> list:
+    """The started processes' output, printed and returned; a non-zero
+    exit or a hang past 600 s a failure. Every process is waited for (or
+    killed) before this returns."""
+    argvs, procs, t0 = started
     outs = []
     try:
         for proc in procs:
@@ -2638,24 +2716,37 @@ def _scale_worker(rank: int, tmp: str) -> None:
 
 def _scale_sharded(smi: str) -> dict:
     """(a): the launcher as two gloo ranks on the card and as one nccl
-    rank, against the mesh run's digest; the atari_a2c CNN sharded R=2
+    rank (all three processes started together), against the mesh run's
+    digest; the atari_a2c CNN sharded R=2
     (two processes) against mesh, ``torch.equal``; capsules across
     replica counts; env steps/s of R=1 and R=2 beside mesh."""
     import tempfile
     from repro_torch import api
     from repro_torch.launch.distributed import params_digest
     spec = api.load(str(QUICKSTART))
-    mesh = build_session(spec, "cuda").run(spec.intervals)
+    mesh = build_session(spec, "cuda").run(DISTRIBUTED_INTERVALS)
     want = params_digest(mesh.params)
     res = {"quickstart": {"mesh_sps": mesh.sps}}
-    for n_proc, backend, route in ((2, "gloo", "host"), (1, "nccl", "device")):
+    # both launches started together (three processes), each on its port
+    cells = ((2, "gloo", "host"), (1, "nccl", "device"))
+    ports = []
+    while len(ports) < len(cells):
         port = _free_port()
-        outs = _processes(
-            [["-m", "repro_torch.launch.distributed", "--spec",
-              str(QUICKSTART), "--coordinator", f"127.0.0.1:{port}",
-              "--num-processes", str(n_proc), "--process-id", str(i)]
-             for i in range(n_proc)],
-            f"{n_proc} rank(s) on the card", "scale")
+        if port not in ports:
+            ports.append(port)
+    argvs, owner = [], []
+    for (n_proc, _, _), port in zip(cells, ports):
+        for i in range(n_proc):
+            argvs.append(["-m", "repro_torch.launch.distributed", "--spec",
+                          str(QUICKSTART), "--coordinator",
+                          f"127.0.0.1:{port}", "--num-processes",
+                          str(n_proc), "--process-id", str(i),
+                          "--intervals", str(DISTRIBUTED_INTERVALS)])
+            owner.append(n_proc)
+    all_outs = _processes(argvs, "2 ranks and 1 rank, started together, on "
+                          "the card", "scale")
+    for n_proc, backend, route in cells:
+        outs = [o for o, n in zip(all_outs, owner) if n == n_proc]
         lines = [json.loads(o.strip().splitlines()[-1]) for o in outs]
         same = all(x["params_sha256"] == want for x in lines)
         print(f"scale: launcher, {n_proc} rank(s), backend "
@@ -2716,7 +2807,7 @@ def _scale_sharded(smi: str) -> dict:
           f"{res['quickstart']['mesh_sps']:.1f}, R=1 (nccl) "
           f"{res['quickstart']['R=1_sps']}, R=2 (gloo) "
           f"{res['quickstart']['R=2_sps']} (each the first run of its "
-          f"process); atari_a2c, a rerun each: mesh {mesh_sps:.1f}, "
+          f"process, the three sharing the card); atari_a2c, a rerun each: mesh {mesh_sps:.1f}, "
           f"sharded R=1 {r1_sps:.1f}, R=2 {res['atari_a2c']['R=2_sps']}")
     return res
 
@@ -2874,8 +2965,9 @@ def phase_scale() -> dict:
     smi = nvidia_smi()
     t0 = time.perf_counter()
     zero_launches()
-    res = {"sharded": _scale_sharded(smi), "serve": _scale_serve(smi),
-           "pool": _scale_pool(smi)}
+    res = {"sharded": part("scale", "sharded", _scale_sharded, smi),
+           "serve": part("scale", "serve", _scale_serve, smi),
+           "pool": part("scale", "pool", _scale_pool, smi)}
     launches = read_launches()
     print(f"scale: launches of the port's kernels on the sharded, serve and "
           f"pool paths {launches}")
@@ -2945,7 +3037,7 @@ def _grad_case(name: str, call, inputs: list, label: str, gen) -> dict:
     counts = read_launches()
     launched = counts[name]
     bwd = counts.get(f"{name}_bwd", 0)
-    tma = mods["lru_scan"].tma_launches
+    tma = mods["lru_scan"].tma_launches + mods["lru_scan"].bwd_tma_launches
     same = all(torch.equal(a, b) for a, b in zip(got, autograd(True)))
     got_f = torch.func.grad(
         lambda *xs: loss(*[xs[idx.index(i)] if i in idx else None
@@ -2959,28 +3051,24 @@ def _grad_case(name: str, call, inputs: list, label: str, gen) -> dict:
     bf16 = any(t.dtype == torch.bfloat16 for t in [*outs, *(
         inputs[i] for i in idx)])
     tol = TRAIN_GRAD_TOL[torch.bfloat16 if bf16 else torch.float32]
-    own_bwd = f"{name}_bwd" in COUNTERS
-    err, ok = 0.0, launched > 0 and same and (bwd == 1 or not own_bwd)
+    err, ok = 0.0, launched > 0 and same and bwd == 1
     for g, gf, w in zip(got, got_f, want):
         for x in (g, gf):
             err = max(err, (x.float() - w.float()).abs().max().item())
             ok = ok and x.dtype == w.dtype and bool(
                 torch.isfinite(x).all()) and torch.allclose(
                 x.float(), w.float(), atol=tol, rtol=tol)
-    route = ("kernel forward and backward" if own_bwd else
-             f"kernel forward and backward ({tma} of {launched} launches "
-             "on the TMA kernel)")
+    route = "kernel forward and backward"
+    if name == "lru_scan":
+        route += f" ({tma} of {launched + bwd} launches on the TMA kernels)"
     row = {"case": label, "launches": launched, "bwd_launches": bwd,
            "route": route, "max_abs_err": err, "tol": tol,
            "deterministic": same, "ok": ok}
-    launches = (f"{launched} forward and {bwd} backward-kernel launches"
-                if own_bwd else f"{launched} launches (the forward and the "
-                "backward's reversed-time run)")
     print(f"llm_train (a) {name} backward {label}: .backward() and "
           f"torch.func.grad vs autograd of the plain version max abs err "
-          f"{err:.3e} (allclose at {tol}); {launches} under .backward(); "
-          f"again on the same inputs torch.equal {same}; route: {route}; "
-          f"ok {ok}")
+          f"{err:.3e} (allclose at {tol}); {launched} forward and {bwd} "
+          f"backward-kernel launches under .backward(); again on the same "
+          f"inputs torch.equal {same}; route: {route}; ok {ok}")
     check(ok, f"{name} backward {row}")
     return row
 
@@ -3006,14 +3094,16 @@ def _llm_backwards() -> dict:
             f"causal={causal} window={window} cap={cap} {dt})", gen))
     for case, init in TRAIN_LRU:
         a, b, h0 = lru_inputs(case, gen)
-        rows["lru_scan"].append(_grad_case(
+        h0 = h0 if init else None
+        label = (f"(B, S, D)={case[:3]} a {case[3]}, b "
+                 f"{case[4] if len(case) > 4 else case[3]}, h0 {init}")
+        row = _grad_case(
             "lru_scan",
             lambda a_, b_, h_, use_kernel: lru_ops.scan(
                 a_, b_, h_, use_kernel=use_kernel),
-            [a, b, h0 if init else None],
-            f"(B, S, D)={case[:3]} a {case[3]}, b "
-            f"{case[4] if len(case) > 4 else case[3]}, h0 {init}, "
-            "cotangent on y and h_last", gen))
+            [a, b, h0], f"{label}, cotangent on y and h_last", gen)
+        row.update(_lru_bwd_plain(a, b, h0, label, gen))
+        rows["lru_scan"].append(row)
     rows["flash_attention"] += [_kv_len_case(c, gen) for c in FLASH_KV_LEN]
     for case, decay in TRAIN_WKV:
         rows["wkv6"].append(_grad_case(
@@ -3022,6 +3112,36 @@ def _llm_backwards() -> dict:
             list(wkv_inputs(case, gen, decay)),
             f"(B, T, H, N)={case[:4]} {case[4]} w {decay}", gen))
     return rows
+
+
+def _lru_bwd_plain(a, b, h0, label: str, gen) -> dict:
+    """(a) for the lru_scan backward binding alone: its outputs
+    ``torch.equal`` to its plain version ``lru_scan_bwd_ref`` on the same
+    inputs (y from the forward kernel), with the route it took; where
+    that is the TMA kernel, the per-thread one (forced) as well."""
+    from repro_torch.kernels.lru_scan import kernel as lk
+    from repro_torch.kernels.lru_scan.ref import lru_scan_bwd_ref
+    y, _ = lk.lru_scan(a, b, h0)
+    gy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+    ghl = torch.randn(y[:, 0].shape, generator=gen, device="cuda")
+    before = lk.bwd_tma_launches
+    outs = [lk.lru_scan_bwd(a, h0, y, gy, ghl, b.dtype)]
+    route = "tma" if lk.bwd_tma_launches > before else "per-thread"
+    if route == "tma":
+        outs.append(lk.lru_scan_bwd(a, h0, y, gy, ghl, b.dtype, tma=False))
+    want = lru_scan_bwd_ref(a, h0, y, gy, ghl, b.dtype)
+    torch.cuda.synchronize()
+    pairs = [(g, w) for got in outs for g, w in zip(got, want)
+             if w is not None]
+    equal = all(torch.equal(g, w) for g, w in pairs)
+    err = max((g.float() - w.float()).abs().max().item() for g, w in pairs)
+    print(f"llm_train (a) lru_scan backward kernel {label}: route {route}"
+          + (" (and the per-thread kernel, forced)" if len(outs) > 1 else "")
+          + f", torch.equal to lru_scan_bwd_ref {equal} (max abs err "
+          f"{err:.3e})")
+    check(equal, f"lru_scan backward kernel vs its plain version {label}")
+    return {"bwd_route": route, "bwd_equal_plain": equal,
+            "bwd_max_abs_err": err}
 
 
 def _kv_len_case(case, gen) -> dict:
@@ -3091,9 +3211,48 @@ def _visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return int(ok.sum())
 
 
+# autograd.grad costs the host far more than a launch: a ~50 ms spin keeps
+# the timed backwards queued behind it (device time)
+GRAD_SPIN = 100_000_000
+
+
+def _sdpa_differs(S: int, Sk: int, causal: bool, window: int,
+                  cap: float) -> str | None:
+    """Why SDPA does not compute the kernel's function at a shape, or None
+    where it does: no soft-cap, a window that masks nothing, causal only
+    at Sq == Sk (SDPA's causal mask is not the kernel's there)."""
+    if cap:
+        return "soft-cap"
+    if window and window < max(S, Sk):
+        return f"window {window}"
+    if causal and S != Sk:
+        return "causal at Sq != Sk"
+    return None
+
+
+def _sdpa_bwd_ms(q, k, v, causal: bool, gen) -> float:
+    """SDPA's backward (autograd.grad, the library's own kernels) on the
+    kernel's inputs laid out as SDPA takes them, (B, H, S, Dh)."""
+    H, KV = q.shape[2], k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    try:
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                           enable_gqa=True)
+    except TypeError:   # torch without enable_gqa
+        o = F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(H // KV, 1),
+            vt.repeat_interleave(H // KV, 1), is_causal=causal)
+    g = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
+    return cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), g,
+                                               retain_graph=True),
+                   10, 2, GRAD_SPIN)
+
+
 def _flash_bwd_shapes(gen) -> list:
     """The backward kernel alone (the bindings, inputs from the forward
-    with its lse) at every arch's training shape, beside its bound."""
+    with its lse) at every arch's training shape, beside its bound and
+    SDPA's backward wherever SDPA computes the same function."""
     from repro_torch.kernels.flash_attention import kernel as fk
     rows = []
     for case in TRAIN_FLASH[-len(PREFILL_ATTN):]:
@@ -3106,11 +3265,16 @@ def _flash_bwd_shapes(gen) -> list:
                                                     **kw), 10, 2)
         Sk = k.shape[1]
         pairs = _visible_pairs(S, Sk, causal, window)
+        differs = _sdpa_differs(S, Sk, causal, window, cap)
+        lib_ms = None if differs else _sdpa_bwd_ms(q, k, v, causal, gen)
         row = {"shape": [B, S, Sk, H, KV, Dh, causal, window, cap], "ms": ms,
+               "library_ms": lib_ms, "library_none": differs,
                **bound(nbytes(q, k, v, o, do, q, k, v, lse, lse),
                        10 * B * H * pairs * Dh, dt)}
+        lib = (f"none ({differs})" if differs else f"{lib_ms:.4f} ms")
         print(f"  flash_attention backward kernel {row['shape']}: {ms:.4f} "
-              f"ms; bound {row['bound_ms']:.4f} ms by {row['bound_by']}")
+              f"ms; SDPA's backward {lib}; bound {row['bound_ms']:.4f} ms "
+              f"by {row['bound_by']}")
         rows.append(row)
     return rows
 
@@ -3121,16 +3285,15 @@ def _bwd_times() -> dict:
     backward (autograd of its graph) and, for flash attention, SDPA's
     backward, with a bound for the backward's work."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.lru_scan import kernel as lru_kernel
     from repro_torch.kernels.lru_scan import ops as lru_ops
-    from repro_torch.kernels.lru_scan.ref import lru_scan_ref
+    from repro_torch.kernels.lru_scan.ref import (lru_scan_bwd_ref,
+                                                  lru_scan_ref)
     from repro_torch.kernels.wkv6 import ops as wkv_ops
     from repro_torch.kernels.wkv6.ref import wkv6_ref
     gen = torch.Generator(device="cuda").manual_seed(11)
     out = {}
-
-    # autograd.grad costs the host far more than a launch: a ~50 ms spin
-    # keeps the timed backwards queued behind it (device time)
-    spin = 100_000_000
+    spin = GRAD_SPIN
 
     def timed(fn_kernel, fn_plain, inputs, iters=10, warmup=2):
         xs = [x.detach().clone().requires_grad_() for x in inputs]
@@ -3151,19 +3314,7 @@ def _bwd_times() -> dict:
         lambda *x: (fa_ops.attend(*x, causal=True),),
         lambda *x: (fa_ops.attend(*x, causal=True, use_kernel=False),),
         [q, k, v])
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    try:
-        o_s = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-    except TypeError:   # torch without enable_gqa
-        o_s = F.scaled_dot_product_attention(
-            qt, kt.repeat_interleave(H // KV, 1),
-            vt.repeat_interleave(H // KV, 1), is_causal=True)
-    g_s = torch.randn(o_s.shape, generator=gen, device="cuda").to(dt)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(o_s, (qt, kt, vt), g_s,
-                                                 retain_graph=True),
-                     spin=spin)
+    lib_ms = _sdpa_bwd_ms(q, k, v, True, gen)
     pairs = S * (S + 1) // 2
     # q, k, v, o and do read, dq, dk, dv written; 5 products of the
     # (query, key) pairs: S = q k^T again, dV, dP, dQ, dK
@@ -3172,18 +3323,41 @@ def _bwd_times() -> dict:
                               "plain_ms": p_ms, "library_ms": lib_ms, **bd,
                               **_flash_fwd_lse_ms(q, k, v),
                               "other_shapes": _flash_bwd_shapes(gen)}
-    # lru_scan at RecurrentGemma's shape
+    # lru_scan at RecurrentGemma's shape: the backward kernel alone and
+    # through the Function (autograd.grad of the kernel route), its plain
+    # version and autograd of the plain forward
     a, b, h0 = lru_inputs(LRU_TRAIN, gen)
-    mods = kernel_modules()
-    k_ms, p_ms, _, _ = timed(lambda *x: lru_ops.scan(*x),
-                             lambda *x: lru_scan_ref(*x), [a, b, h0],
-                             iters=5, warmup=1)
-    # a, y, dy, h0, dh_last read; da, db, dh0 written; per element the
-    # scan's multiply-add and the two products
-    bd = bound(nbytes(a, a, a, h0, h0, a, a, h0), 4 * a.numel(),
+    f_ms, pa_ms, _, _ = timed(lambda *x: lru_ops.scan(*x),
+                              lambda *x: lru_scan_ref(*x), [a, b, h0],
+                              iters=5, warmup=1)
+    y, _ = lru_kernel.lru_scan(a, b, h0)
+    gy, ghl = (torch.randn(t.shape, generator=gen, device="cuda")
+               for t in (y, h0))
+    k_ms = cuda_ms(lambda: lru_kernel.lru_scan_bwd(a, h0, y, gy, ghl,
+                                                   b.dtype))
+    p_ms = cuda_ms(lambda: lru_scan_bwd_ref(a, h0, y, gy, ghl, b.dtype),
+                   iters=3, warmup=1)
+    # a yardstick of the rate this traffic gets, not the same function: one
+    # elementwise PyTorch op that reads three tensors of this size and
+    # writes two (SGD with momentum: param, grad, buffer in; param, buffer
+    # out)
+    par, grad, buf = (torch.randn(a.shape, generator=gen, device="cuda")
+                      for _ in range(3))
+    sgd_ms = cuda_ms(lambda: torch._fused_sgd_(
+        [par], [grad], [buf], weight_decay=0.0, momentum=0.9, lr=1e-6,
+        dampening=0.0, nesterov=False, maximize=False, is_first_step=False))
+    # a, y, gy, h0, gh_last read; da, db, dh0 written; per element the
+    # multiply-add and the da product
+    bd = bound(nbytes(a, y, gy, h0, ghl, a, a, h0), 3 * a.numel(),
                torch.float32)
-    out["lru_scan"] = {"shape": list(a.shape), "ms": k_ms, "plain_ms": p_ms,
-                       "library_ms": None, **bd}
+    print(f"  lru_scan backward kernel {list(a.shape)}: {k_ms:.4f} ms, "
+          f"{bd['bytes'] / (k_ms * 1e-3) / 1e9:.1f} GB/s; through the "
+          f"Function {f_ms:.4f} ms; lru_scan_bwd_ref {p_ms:.4f} ms; "
+          f"torch._fused_sgd_ (the same traffic, 3 tensors in, 2 out) "
+          f"{sgd_ms:.4f} ms")
+    out["lru_scan"] = {"shape": list(a.shape), "ms": k_ms, "function_ms": f_ms,
+                       "plain_ms": p_ms, "plain_autograd_ms": pa_ms,
+                       "same_traffic_ms": sgd_ms, "library_ms": None, **bd}
     # wkv6 at RWKV-6's shape
     r, kk, vv, w, u, s0 = wkv_inputs(WKV_TRAIN, gen)
     k_ms, p_ms, _, _ = timed(lambda *x: wkv_ops.mix(*x),
@@ -3197,7 +3371,6 @@ def _bwd_times() -> dict:
                2 * Bw * Hw * T * (5 * N * N + 5 * N), torch.float32)
     out["wkv6"] = {"shape": [Bw, T, Hw, N], "ms": k_ms, "plain_ms": p_ms,
                    "library_ms": None, **bd}
-    del mods
     for name, row in out.items():
         lib = ("n/a" if row["library_ms"] is None
                else f"{row['library_ms']:.4f} ms")
@@ -3332,7 +3505,9 @@ def _llm_spec_run(arch: str, smi: str, tmp: Path) -> dict:
     lines = _captured(run.main, ["--spec", str(path), "--log-every", "1"])
     wall = time.perf_counter() - t0
     launches = read_launches()
-    lru_tma = kernel_modules()["lru_scan"].tma_launches
+    mods = kernel_modules()
+    lru_tma = mods["lru_scan"].tma_launches
+    lru_bwd_tma = mods["lru_scan"].bwd_tma_launches
     peak = torch.cuda.max_memory_allocated()
     losses = [float(m.group(1)) for line in lines
               for m in [re.match(r"interval\s+\d+ loss (\S+)", line)] if m]
@@ -3343,18 +3518,20 @@ def _llm_spec_run(arch: str, smi: str, tmp: Path) -> dict:
           f"{LLM_SPEC_STEPS} steps of {LLM_BATCH}x{LLM_SEQ} on {smi}: "
           f"losses {losses}; launches {launches} (per step "
           f"{ {k: v / LLM_SPEC_STEPS for k, v in launches.items()} }; "
-          f"lru_scan on the TMA kernel {lru_tma}); peak memory "
-          f"{peak / 1e9:.2f} GB; {wall:.1f} s")
+          f"lru_scan and its backward on the TMA kernels {lru_tma} and "
+          f"{lru_bwd_tma}); peak memory {peak / 1e9:.2f} GB; {wall:.1f} s")
     _expect(launches, {k: v * LLM_SPEC_STEPS for k, v in per_step.items()},
             f"{arch} training")
-    check(lru_tma == launches["lru_scan"],
-          f"{arch}: lru_scan launches off the TMA kernel")
+    check(lru_tma == launches["lru_scan"]
+          and lru_bwd_tma == launches["lru_scan_bwd"],
+          f"{arch}: lru_scan launches off the TMA kernels")
     _free_cuda()
     first = {dtype: _first_step(arch, n_layers, dtype, tol)
              for dtype, tol in (("bfloat16", LLM_LOSS_TOL),
                                 ("float32", CARD_CPU_LOSS_TOL))}
     return {"n_layers": n_layers, "losses": losses, "launches": launches,
-            "lru_scan_tma": lru_tma, "peak_bytes": peak,
+            "lru_scan_tma": lru_tma, "lru_scan_bwd_tma": lru_bwd_tma,
+            "peak_bytes": peak,
             "first_step": first, "wall_s": wall}
 
 
@@ -3434,37 +3611,41 @@ def _first_step(arch: str, n_layers: int, dtype: str,
 def _llm_resume(tmp: Path) -> dict:
     """(d): StarCoder2-3B at full width with 1 layer through the
     launcher: stopped at 2 and resumed to 4 equals an uninterrupted 4
-    steps, every checkpoint leaf."""
+    steps, every checkpoint leaf (each run's final state as its
+    checkpoint stores it, read from its ``Session``)."""
+    from repro_torch import bridge
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core.tree import tree_leaves
     from repro_torch.launch import train
     base = ["--arch", "starcoder2-3b", "--n-layers", str(LLM_RESUME_LAYERS),
             "--batch", str(LLM_BATCH), "--seq", str(LLM_SEQ)]
-    a, b = tmp / "resume_a", tmp / "resume_b"
+    a = tmp / "resume_a"
+
+    def stored(session) -> list:
+        return [ckpt_io._stored(leaf) for leaf in tree_leaves(
+            bridge.backbone_state_to_reference(session.state().algo,
+                                               session.policy.config))]
+
     t0 = time.perf_counter()
     _free_cuda()
     train.main(base + ["--ckpt-dir", str(a), "--ckpt-every", "2",
                        "--steps", "2"])
     _free_cuda()
-    train.main(base + ["--ckpt-dir", str(a), "--resume", "--steps", "4"])
-    for f in a.glob("step_00000002.*"):
-        f.unlink()
+    got = stored(train.main(base + ["--ckpt-dir", str(a), "--resume",
+                                    "--steps", "4"]))
     _free_cuda()
-    train.main(base + ["--ckpt-dir", str(b), "--steps", "4"])
+    want = stored(train.main(base + ["--steps", "4"]))
     _free_cuda()
-    got = np.load(a / "step_00000004.npz")
-    want = np.load(b / "step_00000004.npz")
-    same = sorted(got.files) == sorted(want.files)
-    n_bytes = 0
-    for key in want.files:
-        x, y = got[key], want[key]
-        same = same and x.dtype == y.dtype and np.array_equal(x, y)
-        n_bytes += y.nbytes
+    same = len(got) == len(want) and all(
+        x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(got, want))
+    n_bytes = sum(y.nbytes for y in want)
     print(f"llm_train (d) starcoder2-3b, {LLM_RESUME_LAYERS} layers at full "
           f"width: --ckpt-every 2 --steps 2, then --resume --steps 4, "
-          f"against --steps 4: {len(want.files)} checkpoint leaves "
+          f"against --steps 4: {len(want)} checkpoint leaves "
           f"({n_bytes / 1e9:.2f} GB) equal {same}; "
           f"{time.perf_counter() - t0:.1f} s")
     check(same, "starcoder2-3b resumed run differs from the straight run")
-    return {"leaves": len(want.files), "bytes": n_bytes, "equal": same}
+    return {"leaves": len(want), "bytes": n_bytes, "equal": same}
 
 
 def _llm_card_vs_cpu() -> dict:
@@ -3743,27 +3924,32 @@ def phase_llm_train() -> dict:
     import tempfile
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    res = {"backward": _llm_backwards()}
-    res["backward_times"] = _bwd_times()
+    tag = "llm_train"
+    res = {"backward": part(tag, "(a) backwards", _llm_backwards)}
+    res["backward_times"] = part(tag, "(a) backward times", _bwd_times)
     _free_cuda()
-    res["launch"] = {arch: _llm_launch(arch, smi) for arch in LLM_TRAIN}
+    res["launch"] = {arch: part(tag, f"(b) {arch}", _llm_launch, arch, smi)
+                     for arch in LLM_TRAIN}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_llm_") as d:
-        res["families"] = {arch: _llm_spec_run(arch, smi, Path(d))
-                           for arch in LLM_SPEC_RUNS}
-        res["resume"] = _llm_resume(Path(d))
+        res["families"] = {
+            arch: part(tag, f"(c) {arch}", _llm_spec_run, arch, smi, Path(d))
+            for arch in LLM_SPEC_RUNS}
+        res["resume"] = part(tag, "(d) resume", _llm_resume, Path(d))
     res["first_step"] = {
-        arch: {dtype: _first_step(arch, n_layers, dtype, tol)
+        arch: {dtype: part(tag, f"(c) {arch} {dtype}", _first_step, arch,
+                           n_layers, dtype, tol)
                for dtype, tol in (("bfloat16", LLM_LOSS_TOL),
                                   ("float32", CARD_CPU_LOSS_TOL))}
         for arch, n_layers in LLM_FIRST_STEP.items()}
-    res["card_vs_cpu"] = _llm_card_vs_cpu()
-    res["launch"]["whisper-medium"] = _modal_train(
-        "whisper-medium", 24, smi, WHISPER_TRAIN_FLASH,
-        WHISPER_TRAIN_FLASH_BWD)
-    res["launch"]["qwen2-vl-72b"] = _qwen_train(smi)
-    res["blocked"] = _blocked_on_card(smi)
-    res["danube_adam"] = _danube_adam(smi)
-    res["example"] = _example_llm(smi)
+    res["card_vs_cpu"] = part(tag, "(e) card vs CPU", _llm_card_vs_cpu)
+    res["launch"]["whisper-medium"] = part(
+        tag, "(f) whisper-medium", _modal_train, "whisper-medium", 24, smi,
+        WHISPER_TRAIN_FLASH, WHISPER_TRAIN_FLASH_BWD)
+    res["launch"]["qwen2-vl-72b"] = part(tag, "(f) qwen2-vl-72b",
+                                         _qwen_train, smi)
+    res["blocked"] = part(tag, "(g) blocked", _blocked_on_card, smi)
+    res["danube_adam"] = part(tag, "(h) danube adam", _danube_adam, smi)
+    res["example"] = part(tag, "(i) example", _example_llm, smi)
     print(f"llm_train: phase {time.perf_counter() - t0:.1f} s")
     print("llm_train: " + json.dumps(res, default=str))
     return res
@@ -4034,14 +4220,13 @@ def main() -> int:
     smi = nvidia_smi()
     print(f"times on {smi}:")
     for arch, run in runs.items():
-        print(f"  {arch} prefill {BATCH}x{PROMPT} ms ({SERVE_RUNS} runs): "
-              + ", ".join(f"{x:.3f}" for x in run["prefill_ms"]))
-        print(f"  {arch} decode tok/s, {BATCH} rows x {GEN - 1} steps "
-              f"({SERVE_RUNS} runs): "
-              + ", ".join(f"{x:.1f}" for x in run["tok_s"]))
-    times = {"flash_attention": [flash_times(c) for c in PREFILL_ATTN],
-             "lru_scan": lru_times(),
-             "wkv6": [wkv_times(WKV_MAIN), wkv_times(WKV_DECODE)]}
+        print(f"  {arch} prefill {BATCH}x{PROMPT} {run['prefill_ms']:.3f} "
+              f"ms, decode {run['tok_s']:.1f} tok/s ({BATCH} rows x "
+              f"{GEN - 1} steps, sampled; the launcher's second, warm run)")
+    times = timed("times", lambda: {
+        "flash_attention": [flash_times(c) for c in PREFILL_ATTN],
+        "lru_scan": lru_times(),
+        "wkv6": [wkv_times(WKV_MAIN), wkv_times(WKV_DECODE)]})
     print("phase seconds: " + json.dumps(seconds))
     print(json.dumps({"kernels": [
         _bwd_entry(k, runs, llm) if k.endswith("_bwd")

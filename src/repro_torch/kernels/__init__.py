@@ -17,9 +17,8 @@ On the CUDA route each wrapper calls its kernel inside a
 ``torch.autograd.Function`` (``setup_context`` style, with a ``vmap``
 rule, ``vmap_by_folding``), so ``.backward()``, ``torch.func.grad``,
 ``vjp`` and ``vmap`` all work on the kernels' outputs. Each backward is
-a kernel too: flash attention's and wkv6's own backward kernels (each
-called through a ``Function`` of its own, so ``vmap`` of a gradient
-folds it too), the same kernel run on reversed time for lru_scan. The
+a kernel too: each kernel's own backward kernel, called through a
+``Function`` of its own, so ``vmap`` of a gradient folds it too. The
 reference differentiates its oracles (``custom_vjp``); the backward
 kernels compute the same gradients. The CPU route differentiates through
 the plain version.
@@ -189,12 +188,13 @@ def vmap_by_folding(apply, info, in_dims, args, batched):
 
 
 def raise_on_error(lib, err: int, what: str) -> None:
-    """Raise if a kernel library's entry point returned a CUDA error
-    (the launch was refused or failed); ``lib`` names the error."""
+    """Raise if a kernel library's entry point returned an error: a
+    ``cudaError_t`` (the launch was refused or failed) or a negative code
+    of the library's own (a refused TMA map); ``lib`` names the error."""
     if err:
         raise RuntimeError(f"{what} launch failed: "
                            f"{lib.repro_cuda_error_string(err).decode()} "
-                           f"(cudaError_t {err})")
+                           f"(code {err})")
 
 
 def _nvcc() -> str:

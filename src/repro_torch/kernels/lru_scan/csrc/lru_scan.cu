@@ -48,40 +48,17 @@
 // (D * element size) that are multiples of 16 bytes, for a and b alike;
 // every model shape meets that (D = 4096). Other shapes take
 // `lru_scan_thread`, so any S and D still runs (the TPU kernel's chunk /
-// block divisibility does not carry over). The TMA encoder
-// (`cuTensorMapEncodeTiled`, a driver-API call) is fetched with
-// `cudaGetDriverEntryPoint`, so the library links no -lcuda.
+// block divisibility does not carry over). The instruction forms and the
+// tensor maps are tma_ring.cuh's, which the backward (lru_scan_bwd.cu)
+// shares.
 //
 // Numerics: one fp32 multiply then one fp32 add per step, each rounded (no
 // fused multiply-add), which is the plain PyTorch version's order, so the
 // two agree bit for bit, y rounded to a's dtype from the same fp32 h.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "tma_ring.cuh"
 
 namespace {
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float step(float a, float h, float b) {
-  return __fadd_rn(__fmul_rn(a, h), b);
-}
 
 // ------------------------------------------------ the per-thread kernel
 constexpr int kThreads = 64;   // channels per block: 256 blocks at B=4, D=4096
@@ -124,11 +101,7 @@ lru_scan_thread(const TA* __restrict__ a, const TB* __restrict__ b,
 }
 
 // ------------------------------------------------ the TMA kernel
-constexpr int kChannels = 128;  // per block = consumer threads
-constexpr int kSteps = 32;      // time steps per tile
 constexpr int kStages = 6;      // tiles of a and b in the ring
-static_assert(kChannels % 32 == 0 && kChannels <= 256 && kSteps <= 256,
-              "a TMA box side is at most 256 elements; whole warps");
 
 template <typename TA, typename TB>
 struct Ring {
@@ -139,65 +112,6 @@ struct Ring {
   // to align the base
   static constexpr size_t kSmem = kStages * kStageBytes + 16 * kStages + 128;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// box (kChannels, kSteps, 1) of a 3-D map (d, s, b) at (d0, t0, bi)
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d0, int t0,
-                                         int bi) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(t0), "r"(bi),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int d0, int t0, int bi) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(d0), "r"(t0), "r"(bi)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
 
 // grid (ceil(D / kChannels), B), kChannels + 32 threads: threads
 // 0..kChannels-1 each own channel d0 + threadIdx.x; thread kChannels (the
@@ -222,13 +136,7 @@ lru_scan_tma(const __grid_constant__ CUtensorMap map_a,
   const int n_tiles = (S + kSteps - 1) / kSteps;
   const int tid = threadIdx.x;
 
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(done + 8 * s, kChannels);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (tid == 0) ring_barriers_init(full, done, kStages);
   __syncthreads();
 
   if (tid >= kChannels) {
@@ -247,11 +155,11 @@ lru_scan_tma(const __grid_constant__ CUtensorMap map_a,
       tma_store(&map_y, ring + s * R::kStageBytes, d0, j * kSteps, bi);
       if (j + kStages < n_tiles) {
         // the stage is reloaded once the store has read it
-        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        stores_read();
         load(j + kStages);
       }
     }
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    stores_done();
     return;
   }
 
@@ -277,83 +185,16 @@ lru_scan_tma(const __grid_constant__ CUtensorMap map_a,
         at[t * kChannels] = from_float<TA>(h);
       }
     }
-    // y written by this thread, then seen by the TMA store (async proxy)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    mbar_arrive(done + 8 * s);
+    release_stage(done + 8 * s);
   }
   if (d < D) h_last[(size_t)bi * D + d] = to_float(from_float<TA>(h));
 }
 
 // ------------------------------------------------ host side
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-template <typename T>
-constexpr CUtensorMapDataType map_dtype() {
-  return sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-}
-
-// Errors of the TMA path's own, apart from cudaError_t's (which are >= 0).
-constexpr int kErrNoEncoder = -1;   // the driver has no cuTensorMapEncodeTiled
-constexpr int kErrMapRefused = -2;  // cuTensorMapEncodeTiled refused a map
-
-// 3-D map over (d, s, b) of a contiguous (B, S, D) tensor, box (kChannels,
-// kSteps, 1), no swizzle; out-of-range elements read as zeros and are not
-// written. Returns 0, or kErrNoEncoder / kErrMapRefused (the encoder refuses
-// a base or row stride that is not a multiple of 16 bytes).
-template <typename T>
-int make_map(CUtensorMap* map, const void* base, int B, int S, int D) {
-  const EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return kErrNoEncoder;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * sizeof(T),
-                                 (cuuint64_t)S * D * sizeof(T)};
-  const cuuint32_t box[3] = {kChannels, kSteps, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, map_dtype<T>(), 3, const_cast<void*>(base), dims, strides, box,
-      elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrMapRefused;
-}
-
-// The ring needs more dynamic shared memory than the default 48 KB; the
-// limit is raised once per template instance and device (bit d of `raised`).
 template <typename TA, typename TB>
 cudaError_t allow_ring_smem() {
   static std::atomic<uint64_t> raised{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
-  if (raised.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(lru_scan_tma<TA, TB>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Ring<TA, TB>::kSmem);
-  if (err == cudaSuccess) raised.fetch_or(bit);
-  return err;
+  return allow_smem(lru_scan_tma<TA, TB>, Ring<TA, TB>::kSmem, raised);
 }
 
 template <typename TA, typename TB>
@@ -417,9 +258,6 @@ extern "C" int repro_lru_scan_fwd(const void* a, const void* b,
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {
-  if (err == kErrNoEncoder)
-    return "TMA: the CUDA driver offers no cuTensorMapEncodeTiled";
-  if (err == kErrMapRefused)
-    return "TMA: cuTensorMapEncodeTiled refused a tensor map of a, b or y";
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return error_string(
+      err, "TMA: cuTensorMapEncodeTiled refused a tensor map of a, b or y");
 }

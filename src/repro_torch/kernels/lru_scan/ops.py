@@ -7,14 +7,15 @@ the plain version. Any S and D: the TPU kernel's chunk and block
 divisibility does not carry over.
 
 Gradients: the kernel runs inside ``LruScan``, an ``autograd.Function``
-with the reference's analytic backward (``repro/kernels/lru_scan/
-ops.py:36-55``). For h_t = a_t h_{t-1} + b_t the cotangent recurrence
-lam_t = c_t + a_{t+1} lam_{t+1} is itself an LRU scan on reversed time
-with coefficients [0, a_{S-1}, ..., a_1], so the backward runs the same
-kernel once more (through ``LruScan`` again, so that ``vmap`` of a
-gradient folds it too), then elementwise products: da = lam h_{t-1},
-db = lam (in b's dtype), dh0 = a_0 lam_0. The residuals are (a, h0, y):
-y is the state trajectory.
+whose backward is the hand-written backward kernel
+(``kernel.lru_scan_bwd``, through ``LruScanBwd``) on the residuals (a,
+h0, y): y is the state trajectory. It computes the reference's analytic
+backward (``repro/kernels/lru_scan/ops.py:36-55``) in one pass over
+reversed time: lam_t = c_t + a_{t+1} lam_{t+1} (c the cotangent of y,
+with that of h_last folded into the last step), da = lam h_{t-1}, db =
+lam (in b's dtype), dh0 = a_0 lam_0. Its plain version,
+``ref.lru_scan_bwd_ref``, is held against the reference's ``jax.vjp`` in
+the tests. The plain route's backward is autograd of ``lru_scan_ref``.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from repro_torch.kernels.lru_scan.ref import lru_scan_ref
 
 
 class LruScan(torch.autograd.Function):
-    """The kernel's forward; backward = the kernel on reversed time."""
+    """The kernel's forward; backward = the backward kernel (``LruScanBwd``)
+    on the saved residuals."""
 
     @staticmethod
     def forward(a, b, h0):
@@ -46,25 +48,40 @@ class LruScan(torch.autograd.Function):
         if gy is None or gh_last is None:
             raise RuntimeError("lru_scan backward: a cotangent is missing")
         a, h0, y = ctx.saved_tensors
-        af = a.float()
-        c = gy.float()
-        # h_last aliases y[:, -1]
-        c = torch.cat([c[:, :-1], c[:, -1:] + gh_last.float()[:, None]], 1)
-        a_rev = torch.cat([torch.zeros_like(af[:, :1]),
-                           af.flip(1)[:, :-1]], 1)
-        mu, _ = LruScan.apply(a_rev, c.flip(1), None)
-        lam = mu.float().flip(1)
-        h_init = (torch.zeros_like(af[:, 0]) if h0 is None else h0.float())
-        prev_h = torch.cat([h_init[:, None], y.float()[:, :-1]], 1)
-        da = (lam * prev_h).to(a.dtype)
-        db = lam.to(ctx.b_dtype)
-        dh0 = None if h0 is None else (af[:, 0] * lam[:, 0]).to(h0.dtype)
-        return da, db, dh0
+        da, db, *dh0 = LruScanBwd.apply(a, h0, y, gy.to(a.dtype),
+                                        gh_last, ctx.b_dtype)
+        return da, db, dh0[0].to(h0.dtype) if dh0 else None
 
     @staticmethod
     def vmap(info, in_dims, a, b, h0):
         return vmap_by_folding(LruScan.apply, info, in_dims, (a, b, h0),
                                (True, True, True))
+
+
+class LruScanBwd(torch.autograd.Function):
+    """The backward kernel as a ``Function`` of its own, so that ``vmap``
+    of a gradient folds it into one launch; it has no derivative of its
+    own. Returns (da, db), and dh0 after them where h0 is given."""
+
+    @staticmethod
+    def forward(a, h0, y, gy, gh_last, b_dtype):
+        da, db, dh0 = kernel.lru_scan_bwd(a.contiguous(), h0, y.contiguous(),
+                                          gy.contiguous(), gh_last, b_dtype)
+        return (da, db) if dh0 is None else (da, db, dh0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("lru_scan: the backward kernel has no derivative "
+                           "(no double backward)")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return vmap_by_folding(LruScanBwd.apply, info, in_dims, args,
+                               (True, True, True, True, True, False))
 
 
 def scan(a, b, h0=None, *, use_kernel: bool = True):

@@ -70,7 +70,9 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> api.Session:
+    """Runs the flags' training; returns its ``Session`` (a caller in the
+    same process reads the trained state from it)."""
     ap = _parser()
     args = ap.parse_args(argv)
     if args.ckpt_every and not args.ckpt_dir:
@@ -170,6 +172,7 @@ def main(argv=None) -> None:
         if args.ckpt_dir and (done < args.steps or args.steps > start_step):
             state = session.state()
             save_ckpt(state, done)
+    return session
 
 
 def _vocab_of(args) -> int:

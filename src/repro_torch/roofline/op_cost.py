@@ -8,8 +8,8 @@ desugars into) and accumulates:
     (2 per multiply-add), and each hand-written kernel by the count its
     binding reports (``kernels.notify``): flash attention's dense
     ``4·B·H·Sq·Sk·Dh`` forward and ``10·B·H·Sq·Sk·Dh`` backward, wkv6's
-    ``7·B·T·H·N²`` and ``17·B·T·H·N²``, lru_scan's ``2·B·S·D``; a
-    ctypes launch is invisible to a dispatch mode;
+    ``7·B·T·H·N²`` and ``17·B·T·H·N²``, lru_scan's ``2·B·S·D`` and
+    ``3·B·S·D``; a ctypes launch is invisible to a dispatch mode;
   * bytes: operand plus output bytes of every op that moves data (views
     and allocations excluded), the reference's upper-bound traffic proxy;
   * transcendentals: output elements of exp/log/tanh/sqrt/... ops;

@@ -6,9 +6,9 @@ The CUDA branch is taken with each ctypes binding replaced by a stand-in
 that computes its plain version (no card here), so what is tested is
 each ``Function``'s backward: flash attention's backward binding (its
 plain version ``flash_attention_bwd_ref``, from the forward's lse); the
-reversed-time scan through the kernel's own entry point, with
-``gh_last`` folded into the last step and the h0 gradient; wkv6's
-backward binding (``wkv6_chunked_bwd_ref``). The reference's side: ``jax.grad`` through ``repro.kernels.*.ops`` at the
+lru_scan backward binding (``lru_scan_bwd_ref``: the one reverse-time
+pass, with ``gh_last`` folded into the last step and the h0 gradient);
+wkv6's backward binding (``wkv6_chunked_bwd_ref``). The reference's side: ``jax.grad`` through ``repro.kernels.*.ops`` at the
 shapes of ``tests/test_kernels.py``, lru_scan through its Pallas kernel
 (``interpret=True``) and analytic backward, flash attention and wkv6
 through their oracles (what their ``custom_vjp`` backwards
@@ -28,7 +28,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_bwd_ref, flash_attention_fwd_ref)
 from repro_torch.kernels.lru_scan import ops as lru_ops  # noqa: E402
-from repro_torch.kernels.lru_scan.ref import lru_scan_ref  # noqa: E402
+from repro_torch.kernels.lru_scan.ref import (lru_scan_bwd_ref,  # noqa: E402
+                                              lru_scan_ref)
 from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv6.ref import (wkv6_chunked_bwd_ref,  # noqa: E402
                                           wkv6_ref)
@@ -50,6 +51,7 @@ def launches(monkeypatch):
             (fa_ops, "flash_attention", _flash_fwd),
             (fa_ops, "flash_attention_bwd", flash_attention_bwd_ref),
             (lru_ops, "lru_scan", lru_scan_ref),
+            (lru_ops, "lru_scan_bwd", lru_scan_bwd_ref),
             (wkv_ops, "wkv6", wkv6_ref),
             (wkv_ops, "wkv6_bwd", wkv6_chunked_bwd_ref)):
         monkeypatch.setattr(mod, "use_kernel_for", lambda x, uk: uk)
@@ -108,8 +110,7 @@ def test_flash_attention_backward(case, launches):
 
 
 @pytest.mark.parametrize("with_h0", [True, False])
-def test_lru_scan_backward_runs_the_kernel_on_reversed_time(with_h0,
-                                                            launches):
+def test_lru_scan_backward_runs_the_backward_kernel(with_h0, launches):
     a, b, h0, gy, ghl = _rng_inputs(6, (2, 32, 8), (2, 32, 8), (2, 8),
                                     (2, 32, 8), (2, 8))
     a = 1 / (1 + np.exp(-a))
@@ -121,8 +122,8 @@ def test_lru_scan_backward_runs_the_kernel_on_reversed_time(with_h0,
 
     args = (a, b, h0 if with_h0 else None)
     got = _torch_grads(loss, args)
-    # forward, then the backward's reversed-time scan: the kernel twice
-    assert launches == ["lru_scan", "lru_scan"]
+    # the forward kernel, then the backward kernel: one launch each
+    assert launches == ["lru_scan", "lru_scan_bwd"]
     _close(got, _torch_grads(loss, args, use_kernel=False), "plain")
     jargs = tuple(jnp.asarray(x) for x in args if x is not None)
 

@@ -3,7 +3,7 @@
 Each wrapper (``ops.attend``, ``ops.scan``, ``ops.mix``) calls its
 kernel on the CUDA branch inside an ``autograd.Function``
 (``FlashAttention``, ``LruScan``, ``Wkv6``) whose backward is a kernel
-too (flash attention's and wkv6's through their own backward bindings).
+too (each through its own backward binding).
 The branch is taken here with the route forced and each ctypes binding
 replaced by a stand-in that computes the plain version (no card; a
 backward binding by the plain version's VJP); the gradients under
@@ -20,7 +20,7 @@ import torch
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_fwd_ref
 from repro_torch.kernels.lru_scan import ops as lru_ops
-from repro_torch.kernels.lru_scan.ref import lru_scan_ref
+from repro_torch.kernels.lru_scan.ref import lru_scan_bwd_ref, lru_scan_ref
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6.ref import wkv6_ref, wkv6_ref_vjp
 
@@ -87,6 +87,7 @@ STANDINS = {
     "flash_attention": _flash_standin,
     "flash_attention_bwd": _flash_bwd_standin,
     "lru_scan": lru_scan_ref,
+    "lru_scan_bwd": lru_scan_bwd_ref,
     "wkv6": wkv6_ref,
     "wkv6_bwd": _wkv6_bwd_standin,
 }
