@@ -79,8 +79,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    the paper CNN at
    its published widths runs one ``actor_forward`` and one learner pass
    on a synthetic trajectory (alpha 5, n_envs 16, (84, 84, 4)), held
-   against the port's CPU at 1e-4 relative, with times. The path
-   launches none of the port's kernels, and the counts say so;
+   against the port's CPU at 1e-4 relative, with times. Part ``fig5``
+   drives the functional entry point ``core.mesh_runtime.train`` at
+   ``tests/test_system.py``'s Fig. 5 setup (token env, vocab 32 x 8
+   envs, alpha 8, 120 intervals) with HTS, sync A2C and 16-stale async,
+   and prints the three tail rewards against the claims' thresholds
+   (asserted on the CPU, not here: one seed's floats differ by device)
+   with each run's seconds and env steps/s; at the quickstart
+   configuration with n_envs 1024, ``train(n + 1)``'s params are
+   ``torch.equal`` to ``MeshRuntime.run(n)``'s and a second ``train``
+   call's. The path launches none of the port's kernels, and the counts
+   say so;
 7. the entry point (``phase_run``): ``python -m repro_torch.launch.run
    --spec examples/specs/quickstart.json`` with no other flag; then its
    ``main`` in this process with ``--ckpt-dir --ckpt-every 5 --intervals
@@ -506,6 +515,14 @@ TIMED_RUNS = 2
 PROFILE_INTERVALS = 1
 CNN_TRAJ = dict(alpha=5, n_envs=16)
 CNN_REL_TOL = 1e-4           # card vs CPU, paper CNN at fp32, TF32 off
+# tests/test_system.py's Fig. 5 setup (token env, token policy, rmsprop)
+# and its claims' tail (the last quarter of the intervals); the
+# functional entry point's unconsumed trajectory at the quickstart
+# configuration, n_envs 1024, train(n + 1) against MeshRuntime.run(n)
+FIG5 = dict(vocab=32, n_envs=8, alpha=8, hidden=64, lr=5e-3,
+            entropy_coef=0.003, intervals=120, tail=0.25)
+FIG5_STALE = dict(staleness=16, correction="none")
+FIG5_UNCONSUMED = dict(n_envs=1024, intervals=3)
 
 # the entry point: launcher segments (stop at RUN_STOP, resume to
 # RUN_TOTAL, a checkpoint every RUN_EVERY), the fault plan's truncated
@@ -1992,6 +2009,144 @@ def _train_cnn(smi: str) -> dict:
     return {"errors": errs, **times}
 
 
+FIG5_RUNS = ("hts", "sync", "stale")
+
+
+def _fig5_run(name: str) -> tuple:
+    """One of part fig5's runs on the card from the seed-0 params: HTS
+    through ``train``, sync A2C or 16-stale async through their step
+    builders. Returns (rewards (intervals, alpha, n_envs) numpy, seconds
+    between synchronizes)."""
+    from repro_torch import optim
+    from repro_torch.core import baselines, determinism, engine
+    from repro_torch.core import mesh_runtime
+    from repro_torch.envs import token_env
+    from repro_torch.envs.interfaces import vectorize
+    from repro_torch.models import cnn_policy
+    f, n = FIG5, FIG5["intervals"]
+    venv = vectorize(token_env.make(vocab=f["vocab"], seed=1), f["n_envs"])
+    cfg = engine.HTSConfig(alpha=f["alpha"], n_envs=f["n_envs"], seed=0,
+                           entropy_coef=f["entropy_coef"])
+    params = cnn_policy.init_token_policy(determinism.master_key(0),
+                                          f["vocab"], hidden=f["hidden"])
+    apply, opt = cnn_policy.apply_token_policy, optim.rmsprop(f["lr"],
+                                                              eps=1e-5)
+    acfg = baselines.AsyncConfig(**FIG5_STALE)
+    run = {
+        "hts": lambda: mesh_runtime.train(params, apply, venv, opt, cfg, n),
+        "sync": lambda: engine.scan_intervals(
+            baselines.make_sync_step(apply, venv, opt, cfg),
+            baselines.sync_init_carry(params, opt, venv, cfg), n, cfg),
+        "stale": lambda: engine.scan_intervals(
+            baselines.make_async_step(apply, venv, opt, cfg, acfg),
+            baselines.async_init_carry(params, opt, venv, cfg, acfg), n,
+            cfg)}[name]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    r = metrics["rewards"]
+    check(r.shape == (n, f["alpha"], f["n_envs"]) and r.is_cuda
+          and bool(torch.isfinite(r).all())
+          and bool(((r >= 0) & (r <= 1)).all()),
+          f"fig5 {name}: rewards {tuple(r.shape)} {r.device}")
+    return r.cpu().numpy(), secs
+
+
+def _fig5_worker(name: str, tmp: str) -> None:
+    """``_fig5_run(name)`` in a process of its own; its result goes to
+    ``tmp/<name>.pt``."""
+    rewards, secs = _fig5_run(name)
+    torch.save({"rewards": rewards, "seconds": secs}, f"{tmp}/{name}.pt")
+    print(f"fig5 {name}: {secs:.2f} s")
+
+
+def _fig5_runs(smi: str) -> dict:
+    """(a) The three runs, HTS here while sync and stale async run in two
+    processes of their own (the host's launches bound each run, so side
+    by side they take about the time of one), and their tail rewards
+    against the Fig. 5 claims (printed, not failed)."""
+    import tempfile
+    f, n = FIG5, FIG5["intervals"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fig5_") as tmp:
+        started = _started([["-c", f"import chip_smoke as c; "
+                                   f"c._fig5_worker({k!r}, {tmp!r})"]
+                            for k in FIG5_RUNS[1:]])
+        try:
+            res = {"hts": _fig5_run("hts")}
+        finally:
+            _waited(started, "fig5 sync and stale async runs", "train")
+        for k in FIG5_RUNS[1:]:
+            got = torch.load(f"{tmp}/{k}.pt", weights_only=False)
+            res[k] = got["rewards"], got["seconds"]
+    wall = time.perf_counter() - t0
+    rewards = {k: r for k, (r, _) in res.items()}
+    secs = {k: t for k, (_, t) in res.items()}
+    steps = n * f["alpha"] * f["n_envs"]
+    tail = max(1, int(n * f["tail"]))
+    tails = {k: float(v[-tail:].mean()) for k, v in rewards.items()}
+    early = float(rewards["hts"][:5].mean())
+    claims = {
+        "hts learns": (tails["hts"] > early + 0.05 and tails["hts"] > 0.15,
+                       f"late {tails['hts']:.4f} > early {early:.4f} + 0.05 "
+                       f"and > 0.15"),
+        "hts vs sync": (tails["hts"] > 0.6 * tails["sync"],
+                        f"hts {tails['hts']:.4f} > 0.6 x sync "
+                        f"{tails['sync']:.4f} = {0.6 * tails['sync']:.4f}"),
+        "hts vs stale": (tails["hts"] >= tails["stale"] - 0.05,
+                         f"hts {tails['hts']:.4f} >= stale "
+                         f"{tails['stale']:.4f} - 0.05")}
+    print(f"train fig5 (token env vocab {f['vocab']} x {f['n_envs']} envs, "
+          f"alpha {f['alpha']}, token policy hidden {f['hidden']}, rmsprop "
+          f"{f['lr']}, entropy {f['entropy_coef']}, seed 0, {n} intervals; "
+          f"tail = last {tail}): tail rewards hts {tails['hts']:.4f}, sync "
+          f"{tails['sync']:.4f}, stale (K {FIG5_STALE['staleness']}, "
+          f"{FIG5_STALE['correction']}) {tails['stale']:.4f}; " + "; ".join(
+              f"{k}: {why}: {'holds' if ok else 'does not hold'}"
+              for k, (ok, why) in claims.items()))
+    print(f"train fig5 times on {smi}: " + ", ".join(
+        f"{k} {secs[k]:.2f} s ({steps / secs[k]:.1f} env steps/s)"
+        for k in FIG5_RUNS) + f" ({steps} env steps a run, host clock "
+          f"between synchronizes; sync and stale in fresh processes, "
+          f"alongside hts); the three together {wall:.1f} s")
+    return {"tails": tails, "early": early, "seconds": secs, "wall": wall,
+            "sps": {k: steps / secs[k] for k in FIG5_RUNS},
+            "claims": {k: ok for k, (ok, _) in claims.items()}}
+
+
+def _fig5_unconsumed(smi: str) -> dict:
+    """(b) ``train(n + 1)`` leaves its last trajectory unconsumed: its
+    params are ``MeshRuntime.run(n)``'s, and a second call's, bit for
+    bit."""
+    from repro_torch import api
+    from repro_torch.core import mesh_runtime
+    n = FIG5_UNCONSUMED["intervals"]
+    rt = build_session(api.load(str(QUICKSTART)), "cuda",
+                       n_envs=FIG5_UNCONSUMED["n_envs"]).runtime
+    out = rt.run(n)
+    trained = [mesh_runtime.train(rt.params0, rt.policy_apply, rt.venv,
+                                  rt.opt, rt.cfg, n + 1) for _ in range(2)]
+    (a, ma), (b, mb) = trained
+    vs_mesh = _params_equal(a[0].params, out.params)
+    rerun = (_params_equal(a[0].params, b[0].params)
+             and torch.equal(ma["rewards"], mb["rewards"])
+             and torch.equal(ma["dones"], mb["dones"]))
+    streams = bool((ma["rewards"][:n].cpu().numpy() == out.rewards).all())
+    print(f"train fig5 (b) quickstart spec at n_envs "
+          f"{FIG5_UNCONSUMED['n_envs']}, K=1: train({n + 1}) params "
+          f"torch.equal to MeshRuntime.run({n}) {vs_mesh}; two train calls "
+          f"equal (params, streams) {rerun}; the first {n} intervals' "
+          f"rewards equal {streams}; j {int(a[4])}, updates "
+          f"{int(a[0].step)}")
+    check(vs_mesh, "train fig5 (b): train(n + 1) differs from run(n)")
+    check(rerun, "train fig5 (b): two train calls differ")
+    check(streams and int(a[4]) == n + 1 and int(a[0].step) == n,
+          "train fig5 (b): streams or counts")
+    return {"equals_mesh_run": vs_mesh, "rerun_equal": rerun}
+
+
 def phase_train() -> dict:
     """The RL training interval on the card (phase 6 of the docstring).
     The kernel launch counts are zeroed before and read after: the path
@@ -2014,6 +2169,8 @@ def phase_train() -> dict:
           "goldens and quickstart runs: " + ("; ".join(flagged) or "none"))
     res["scale"] = part("train", "scale", _train_scale, smi)
     res["cnn"] = part("train", "cnn", _train_cnn, smi)
+    res["fig5"] = part("train", "fig5", lambda: {
+        "runs": _fig5_runs(smi), "unconsumed": _fig5_unconsumed(smi)})
     launches = read_launches()
     print(f"train: launches of the port's kernels on the training path "
           f"{launches}")

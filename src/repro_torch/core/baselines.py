@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.algorithms import vtrace as vtrace_alg
 from repro_torch.core import determinism
 from repro_torch.core.engine import (HTSConfig, ScanRuntimeBase, TrainState,
@@ -33,10 +34,13 @@ from repro_torch.envs.device import batched_env
 from repro_torch.optim import Optimizer, apply_updates
 
 
-def _reset(env, cfg: HTSConfig, device):
+def _init(params, env, cfg: HTSConfig, device):
+    """(params copied to ``device``, env_state, obs): the env replicas
+    reset from ``split(key(seed ^ 0x5EED), n_envs)``."""
     keys = determinism.split(
         determinism.master_key(cfg.seed ^ 0x5EED, device), cfg.n_envs)
-    return env.reset(keys)
+    env_state, obs = env.reset(keys)
+    return tree_map(lambda p: p.to(device, copy=True), params), env_state, obs
 
 
 def make_sync_grad_fn(policy_apply: Callable, cfg: HTSConfig):
@@ -48,7 +52,10 @@ def make_sync_grad_fn(policy_apply: Callable, cfg: HTSConfig):
 def make_sync_step(policy_apply: Callable, env, opt: Optimizer,
                    cfg: HTSConfig, device=None):
     """Conventional synchronous A2C/PPO interval (paper Fig. 2(c)):
-    ``step(carry) -> (carry', metrics)``."""
+    ``step(carry) -> (carry', metrics)``. ``device=None`` means ``cuda``,
+    as for every builder here; without CUDA only an explicit ``"cpu"``
+    runs."""
+    device = resolve_device(device)
     rcfg = RolloutConfig(cfg.alpha, cfg.n_envs)
     master = determinism.master_key(cfg.seed, device)
     grad_fn = make_sync_grad_fn(policy_apply, cfg)
@@ -69,10 +76,9 @@ def make_sync_step(policy_apply: Callable, env, opt: Optimizer,
 
 def sync_init_carry(params, opt: Optimizer, env, cfg: HTSConfig,
                     device=None):
-    """(params, opt_state, env_state, obs, j = 0); ``params`` copied,
-    ``j`` an int32 tensor on the CPU (``TrainState``)."""
-    env_state, obs = _reset(env, cfg, device)
-    params = tree_map(torch.clone, params)
+    """(params, opt_state, env_state, obs, j = 0); ``params`` copied to
+    ``device``, ``j`` an int32 tensor on the CPU (``TrainState``)."""
+    params, env_state, obs = _init(params, env, cfg, resolve_device(device))
     return (params, opt.init(params), env_state, obs,
             torch.zeros((), dtype=torch.int32))
 
@@ -104,6 +110,7 @@ def make_async_step(policy_apply: Callable, env, opt: Optimizer,
     """Stale-policy actor-learner step: the rollout uses the params of
     ``acfg.staleness`` updates ago (the oldest snapshot of the FIFO in
     the carry), the learner differentiates the current params on it."""
+    device = resolve_device(device)
     rcfg = RolloutConfig(cfg.alpha, cfg.n_envs)
     master = determinism.master_key(cfg.seed, device)
     grad_fn = make_async_grad_fn(policy_apply, cfg, acfg)
@@ -127,8 +134,9 @@ def make_async_step(policy_apply: Callable, env, opt: Optimizer,
 
 def async_init_carry(params, opt: Optimizer, env, cfg: HTSConfig,
                      acfg: AsyncConfig, device=None):
-    env_state, obs = _reset(env, cfg, device)
-    params = tree_map(torch.clone, params)
+    """(params, opt_state, behavior FIFO, env_state, obs, j = 0): the
+    FIFO holds ``acfg.staleness`` copies of the initial params."""
+    params, env_state, obs = _init(params, env, cfg, resolve_device(device))
     history = tree_map(lambda p: torch.stack([p] * acfg.staleness), params)
     return (params, opt.init(params), history, env_state, obs,
             torch.zeros((), dtype=torch.int32))

@@ -143,6 +143,26 @@ def deterministic_cudnn():
         cudnn.deterministic, cudnn.benchmark = saved
 
 
+def scan_intervals(step, carry, n_intervals: int, cfg: HTSConfig,
+                   device=None):
+    """``lax.scan``'s counterpart over intervals: ``n_intervals``
+    applications of ``step(carry) -> (carry', metrics)``, under
+    ``deterministic_cudnn``. Returns (carry', {"rewards", "dones"} stacked
+    to (n_intervals, alpha, n_envs) on ``device``)."""
+    rewards, dones = [], []
+    with deterministic_cudnn():
+        for _ in range(n_intervals):
+            carry, m = step(carry)
+            rewards.append(m["rewards"])
+            dones.append(m["dones"])
+    if not rewards:
+        empty = torch.zeros((0, cfg.alpha, cfg.n_envs), dtype=torch.float32,
+                            device=device)
+        return carry, {"rewards": empty, "dones": empty.clone()}
+    return carry, {"rewards": torch.stack(rewards),
+                   "dones": torch.stack(dones)}
+
+
 class ScanRuntimeBase:
     """Shared plumbing of the interval runtimes: build once, carry reset
     per ``run``, timing and RunResult assembly. Subclasses fill in
@@ -237,22 +257,16 @@ class ScanRuntimeBase:
         cfg = self.cfg
         synchronize(self.device)
         t0 = time.perf_counter()
-        metrics = []
         with deterministic_cudnn():
-            for _ in range(n_intervals):
-                self.carry, m = self._step(self.carry)
-                metrics.append(m)
+            self.carry, metrics = scan_intervals(self._step, self.carry,
+                                                 n_intervals, cfg, self.device)
             # self.carry stays mid-stream (continuable); the trailing
             # passes exist only so the RunResult reflects n updates
             final = self._finalize(self.carry) if finalize else self.carry
         params, state = self._result_state(final)
-        if metrics:
-            rewards, dones = self._host_metrics(
-                torch.stack([m["rewards"] for m in metrics]),
-                torch.stack([m["dones"] for m in metrics]))
-        else:
-            rewards = dones = torch.zeros((0, cfg.alpha, cfg.n_envs),
-                                          dtype=torch.float32)
+        rewards, dones = metrics["rewards"], metrics["dones"]
+        if n_intervals:
+            rewards, dones = self._host_metrics(rewards, dones)
         rewards, dones = rewards.cpu().numpy(), dones.cpu().numpy()
         synchronize(self.device)
         wall = time.perf_counter() - t0

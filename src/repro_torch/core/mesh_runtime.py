@@ -33,12 +33,13 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch import algorithms
+from repro_torch import algorithms, resolve_device
 from repro_torch.core import delayed_grad, determinism, distributed
 from repro_torch.core.batch import BatchConfig, pairwise_tree_sum
 from repro_torch.core.buffers import device_rollout_buffer
 from repro_torch.core.engine import (HTSConfig, RunResult,  # noqa: F401
-                                     ScanRuntimeBase, register_runtime)
+                                     ScanRuntimeBase, register_runtime,
+                                     scan_intervals)
 from repro_torch.core.rollout import RolloutConfig, rollout_interval
 from repro_torch.core.tree import tree_map
 from repro_torch.envs.device import batched_env
@@ -278,8 +279,9 @@ def make_hts_step(policy_apply: Callable, env, opt: Optimizer,
     each env draws the keys it draws in the 1-process run, the actor
     runs at the global width (``rollout_interval``'s ``width``), and the
     learner combines the ranks' gradient sums before dividing by
-    ``total_envs``."""
-    device = torch.device("cpu" if device is None else device)
+    ``total_envs``. ``device=None`` means ``cuda`` (``resolve_device``):
+    without CUDA only an explicit ``"cpu"`` runs."""
+    device = resolve_device(device)
     rcfg = RolloutConfig(cfg.alpha, cfg.n_envs)
     master = determinism.master_key(cfg.seed, device)
     learn = make_learner_update(policy_apply, opt, cfg, group,
@@ -314,13 +316,15 @@ def init_carry(policy_params, opt: Optimizer, env, cfg: HTSConfig,
                device=None):
     """Initial (dg_state, env_state, obs, zero ring, j = 0): env replicas
     reset from ``split(key(seed ^ 0x5EED), n_envs)``. ``policy_params``
-    are copied; ``j`` is an int32 tensor on the CPU (``TrainState``)."""
-    device = torch.device("cpu" if device is None else device)
+    are copied to ``device`` (``None`` means ``cuda``); ``j`` is an int32
+    tensor on the CPU (``TrainState``)."""
+    device = resolve_device(device)
     keys = determinism.split(
         determinism.master_key(cfg.seed ^ 0x5EED, device), cfg.n_envs)
     env_state, obs = env.reset(keys)
-    dg = delayed_grad.init(tree_map(torch.clone, policy_params), opt,
-                           staleness=cfg.staleness)
+    dg = delayed_grad.init(
+        tree_map(lambda p: p.to(device, copy=True), policy_params), opt,
+        staleness=cfg.staleness)
     zero_traj = device_rollout_buffer(cfg.n_envs, cfg.alpha, obs.shape[1:],
                                       obs.dtype, device=device)
     if cfg.staleness > 1:
@@ -328,6 +332,28 @@ def init_carry(policy_params, opt: Optimizer, env, cfg: HTSConfig,
                              zero_traj)
     return (dg, env_state, obs, zero_traj,
             torch.zeros((), dtype=torch.int32))
+
+
+def train(policy_params, policy_apply: Callable, env, opt: Optimizer,
+          cfg: HTSConfig, n_intervals: int, unroll: int = 1, device=None):
+    """Run ``n_intervals`` HTS-RL intervals on an already vectorized
+    ``env`` (``vectorize(env1, cfg.n_envs)``). Returns (final carry,
+    metrics): the carry is ``init_carry``'s after ``n_intervals`` steps,
+    metrics ``{"rewards", "dones"}`` stacked to (n_intervals, alpha,
+    n_envs) on the run's device.
+
+    The final interval's trajectory is left unconsumed in the carry (its
+    update would belong to interval n): ``train(n + 1)``'s params are
+    ``MeshRuntime.run(n)``'s, whose trailing learner pass lines the update
+    counts up across runtimes. ``unroll`` (>= 1) is the reference's scan
+    unroll and does not change the result. ``device=None`` means
+    ``cuda``; without CUDA only an explicit ``"cpu"`` runs."""
+    if unroll < 1:
+        raise ValueError(f"unroll must be >= 1, got {unroll}")
+    device = resolve_device(device)
+    step = make_hts_step(policy_apply, env, opt, cfg, device=device)
+    carry = init_carry(policy_params, opt, env, cfg, device)
+    return scan_intervals(step, carry, n_intervals, cfg, device)
 
 
 @register_runtime("mesh")

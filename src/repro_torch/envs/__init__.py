@@ -10,6 +10,8 @@ env's port), ``token`` (next-token prediction as an MDP) and
 multi-player variant is ``football.make_multi``). Built-ins load on first
 lookup; an unknown name raises ``KeyError`` listing the names. Third
 parties add entries with ``@register_env``, as in the reference.
+``has_device_port`` and ``get_device_env`` reach ``envs.device`` by a
+host env's name.
 """
 from __future__ import annotations
 
@@ -60,3 +62,16 @@ def get_env(name: str, **kwargs):
 def env_names():
     return sorted(set(_REGISTRY) | set(_LAZY))
 
+
+def has_device_port(name: str) -> bool:
+    """Does host env ``name`` have a device-resident port
+    (``HTSConfig.env_backend="device"``)? See ``envs.device``."""
+    from repro_torch.envs import device
+    return device.has_device_port(name)
+
+
+def get_device_env(name: str, **kwargs):
+    """Construct the device-resident port of host env ``name``; raises
+    ``ValueError`` listing the ports when there is none."""
+    from repro_torch.envs import device
+    return device.get_device_env(name, **kwargs)

@@ -111,3 +111,8 @@ def batched_env(env: Env, n_envs: int, backend: str = "host"):
     raise ValueError(
         f"unknown env_backend {backend!r}; choose 'host' (vmapped "
         f"scalar envs) or 'device' (device-resident batched port)")
+
+
+def make_device_env(host_name: str, **kwargs) -> DeviceEnv:
+    """``get_device_env`` under the reference's factory name."""
+    return get_device_env(host_name, **kwargs)

@@ -147,3 +147,35 @@ def test_unregistered_name_still_raises():
     with pytest.raises(KeyError, match="registered"):
         envs.get_env(NAME)
     assert not tdevice.has_device_port(NAME)
+
+
+# ------------------------------- the device-port names of the registry
+@pytest.mark.parametrize("name", ["catch", "gridmaze", "token", NAME])
+def test_has_device_port_agrees_with_the_reference(registered, name):
+    assert envs.has_device_port(name) == jenvs.has_device_port(name)
+    assert envs.has_device_port(name) == (name != "token")
+
+
+@pytest.mark.parametrize("name", ["catch", "gridmaze", NAME])
+@pytest.mark.parametrize("where", ["envs.get_device_env",
+                                   "envs.device.make_device_env"])
+def test_device_env_names_build_the_reference_port(registered, name, where):
+    """``envs.get_device_env`` and ``envs.device.make_device_env`` of both
+    packages build ports whose reset obs are equal from the same keys."""
+    mod, attr = where.rsplit(".", 1)
+    ours = {"envs": envs, "envs.device": tdevice}[mod]
+    ref = {"envs": jenvs, "envs.device": jdevice}[mod]
+    tenv, jenv = getattr(ours, attr)(name), getattr(ref, attr)(name)
+    assert tenv.host_name == jenv.host_name == name
+    _, obs = tenv.reset(determinism.split(determinism.master_key(5), 6))
+    _, jobs = jenv.reset(jax.random.split(jax.random.key(5), 6))
+    assert obs.shape == (6,) + tuple(tenv.obs_shape)
+    np.testing.assert_array_equal(obs.numpy(), np.asarray(jobs))
+
+
+def test_unknown_device_port_raises_in_both_packages():
+    for fn in (envs.get_device_env, jenvs.get_device_env,
+               tdevice.make_device_env, jdevice.make_device_env):
+        with pytest.raises(ValueError, match="has no device-resident port"):
+            fn("no_such_env")
+    assert not envs.has_device_port("no_such_env")

@@ -205,6 +205,50 @@ def test_runtime_refuses_the_cpu_unless_asked(monkeypatch):
         torch.device("cpu")
 
 
+def _builders():
+    """Each functional builder of the port on a 2 x 2 catch run: name ->
+    (call(**kw), j after driving what the call returned on the CPU, the
+    expected j)."""
+    from repro_torch.core import baselines as tb
+    from repro_torch.envs.interfaces import vectorize
+    env1 = envs.get_env("catch")
+    pol = models.get_policy("mlp", env1)
+    venv, cfg = vectorize(env1, 2), engine.HTSConfig(alpha=2, n_envs=2)
+    params, opt = pol.init(tdet.master_key(0)), optim.rmsprop(7e-4)
+    acfg = tb.AsyncConfig(staleness=2)
+    hts = (tmesh.make_hts_step, tmesh.init_carry, ())
+    sync = (tb.make_sync_step, tb.sync_init_carry, ())
+    stale = (tb.make_async_step, tb.async_init_carry, (acfg,))
+    out = {"train": (lambda **kw: tmesh.train(params, pol.apply, venv, opt,
+                                              cfg, 2, **kw),
+                     lambda res: res[0][-1], 2)}
+    for make, init, extra in (hts, sync, stale):
+        def carry(init=init, extra=extra, **kw):
+            return init(params, opt, venv, cfg, *extra, **kw)
+
+        def step(make=make, extra=extra, **kw):
+            return make(pol.apply, venv, opt, cfg, *extra, **kw)
+
+        out[init.__name__] = (carry, lambda c: c[-1], 0)
+        out[make.__name__] = (
+            step, lambda f, carry=carry: f(carry(device="cpu"))[0][-1], 1)
+    return out
+
+
+@pytest.mark.parametrize("name", [
+    "make_hts_step", "init_carry", "train", "make_sync_step",
+    "sync_init_carry", "make_async_step", "async_init_carry"])
+def test_functional_builders_refuse_the_cpu_unless_asked(monkeypatch, name):
+    """The functional entry points run on the card too: ``device=None``
+    means ``cuda``, and without CUDA only ``device="cpu"`` runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call, j_of, expected = _builders()[name]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+    j = j_of(call(device="cpu"))
+    assert j.device.type == "cpu" and int(j) == expected
+
+
 @pytest.mark.parametrize("env_offset", [0, 3])
 def test_rollout_interval_matches_jax(env_offset):
     """One interval of the rollout half on its own: the env ids shifted by
