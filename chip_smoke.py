@@ -10,7 +10,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    nvcc per source, all started together, with each compiler report
    (registers, spills), the count of tensor-core instructions (HGMMA,
    HMMA) in each library's SASS and of TMA loads (UTMALDG) in both
-   lru_scan libraries';
+   lru_scan libraries' and the flash backward's;
 3. each kernel against its plain PyTorch version on the card, at the
    reference test cases, at shapes off the TPU kernels' block multiples
    and at the shapes the main paths give it; flash attention also on
@@ -169,14 +169,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    ``torch.equal`` gradients (no atomics): the reference grad tests'
    shapes, shapes off the block multiples, soft-cap, GQA, window, every
    bf16 head dim, fp32, Sq != Sk, ``kv_len`` through the bindings, every
-   arch's attention at its training shape, lru_scan at S 1, 33 and a D
+   arch's attention at its training shape (each bf16 flash case also
+   against an fp32 witness, ``ref.flash_attention_bwd_ref`` on fp32
+   copies of its inputs: no further from it than the plain bf16 version,
+   or within 3e-2 of it), lru_scan at S 1, 33 and a D
    that TMA refuses, h0 or none, a cotangent on h_last, mixed dtypes,
    wkv6 at T 1, 31, 32, 33, 512 with w = 0, N 8 and 16 and RWKV-6's (4,
    512, 64, 64), each printing its route and its backward-kernel
    launches; each backward's time at its training shape against its
    plain version's, SDPA's backward (flash) and a bound, the flash
    backward kernel alone at every arch's training shape beside SDPA's
-   backward wherever SDPA computes the same function, the lru_scan
+   backward wherever SDPA computes the same function, the bound and two
+   earlier kernels' times (constants: PERF.md), the lru_scan
    backward kernel alone beside a same-traffic elementwise op, and the
    flash forward with and without its lse; (b) ``python -m
    repro_torch.launch.train --arch starcoder2-3b --steps 3 --batch 4
@@ -455,7 +459,7 @@ COUNTERS = {"flash_attention": ("flash_attention", "launches"),
 # that must hold TMA loads
 TENSOR_CORE_KERNELS = ("flash_attention", "wkv6", "flash_attention_bwd",
                        "wkv6_bwd")
-TMA_KERNELS = ("lru_scan", "lru_scan_bwd")
+TMA_KERNELS = ("lru_scan", "lru_scan_bwd", "flash_attention_bwd")
 
 # arch -> launches expected (in serve.main: prefill + GEN-1 decode steps,
 # per prefill, per decode step); kernels not named must launch 0 times.
@@ -3164,14 +3168,17 @@ def _free_cuda() -> None:
     torch.cuda.empty_cache()
 
 
-def _grad_case(name: str, call, inputs: list, label: str, gen) -> dict:
+def _grad_case(name: str, call, inputs: list, label: str, gen,
+               witness=None) -> dict:
     """One kernel's backward on the card: gradients of sum(out * c) (c a
     fixed N(0, 1) cotangent per output) through the kernel route under
     ``.backward()`` and under ``torch.func.grad``, against autograd of the
     plain version; each input's gradient at GRAD_TOL of its dtype; and
     ``.backward()`` again on the same inputs, ``torch.equal`` to the
     first (deterministic). ``call(*inputs, use_kernel=...)`` returns the
-    output tuple."""
+    output tuple. ``witness(inputs, cots)``, where given, returns fp32
+    gradients of the same function: a bf16 case is also held to them
+    (``_witness_check``)."""
     idx = [i for i, x in enumerate(inputs) if x is not None]
     with torch.no_grad():
         outs = call(*inputs, use_kernel=False)
@@ -3220,7 +3227,12 @@ def _grad_case(name: str, call, inputs: list, label: str, gen) -> dict:
         route += f" ({tma} of {launched + bwd} launches on the TMA kernels)"
     row = {"case": label, "launches": launched, "bwd_launches": bwd,
            "route": route, "max_abs_err": err, "tol": tol,
-           "deterministic": same, "ok": ok}
+           "deterministic": same}
+    if witness is not None and bf16:
+        row["witness"] = _witness_check(
+            got, want, witness([inputs[i] for i in idx], cots), label)
+        ok = ok and row["witness"]["ok"]
+    row["ok"] = ok
     print(f"llm_train (a) {name} backward {label}: .backward() and "
           f"torch.func.grad vs autograd of the plain version max abs err "
           f"{err:.3e} (allclose at {tol}); {launched} forward and {bwd} "
@@ -3228,6 +3240,44 @@ def _grad_case(name: str, call, inputs: list, label: str, gen) -> dict:
           f"inputs torch.equal {same}; route: {route}; ok {ok}")
     check(ok, f"{name} backward {row}")
     return row
+
+
+def _witness_check(got: list, plain: list, witness: list,
+                   label: str) -> dict:
+    """A bf16 backward against an fp32 witness of the same function: each
+    gradient no further from it than the plain bf16 version is, or
+    within TRAIN_GRAD_TOL's 3e-2 of it. The plain version rounds where
+    the kernel does not (its GQA dk, dv sums run in bf16), so it is no
+    yardstick of precision alone."""
+    tol = TRAIN_GRAD_TOL[torch.bfloat16]
+    dists, ok = [], True
+    for g, p, w in zip(got, plain, witness):
+        g, p, w = g.float(), p.float(), w.float()
+        dk, dp = ((x - w).abs().max().item() for x in (g, p))
+        ok = ok and (dk <= dp or torch.allclose(g, w, atol=tol, rtol=tol))
+        dists.append((dk, dp))
+    print(f"llm_train (a) flash_attention backward {label}: vs the fp32 "
+          "witness, kernel / plain bf16 max abs "
+          + ", ".join(f"d{n} {a:.3e} / {b:.3e}" for n, (a, b)
+                      in zip("qkv", dists)) + f"; ok {ok}")
+    return {"kernel": [a for a, _ in dists], "plain": [b for _, b in dists],
+            "ok": ok}
+
+
+def _flash_witness(**kw):
+    """fp32 gradients of a flash case for ``_grad_case``:
+    ``ref.flash_attention_bwd_ref`` on fp32 copies of the inputs, from
+    the fp32 forward's output and lse, the cotangent as the bf16 output
+    passes it back."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+
+    def witness(inputs, cots):
+        xs = [x.float() for x in inputs]
+        do = cots[0].to(inputs[0].dtype).float()
+        o, lse = flash_attention_fwd_ref(*xs, **kw)
+        return flash_attention_bwd_ref(*xs, o, lse, do, **kw)
+    return witness
 
 
 def _llm_backwards() -> dict:
@@ -3248,7 +3298,8 @@ def _llm_backwards() -> dict:
                 q, k, v, use_kernel=use_kernel, **kw),),
             flash_inputs(case, gen),
             f"(B={B} S={S} Sk={key_len(case)} H={H} KV={KV} Dh={Dh} "
-            f"causal={causal} window={window} cap={cap} {dt})", gen))
+            f"causal={causal} window={window} cap={cap} {dt})", gen,
+            _flash_witness(causal=causal, window=window, cap=cap)))
     for case, init in TRAIN_LRU:
         a, b, h0 = lru_inputs(case, gen)
         h0 = h0 if init else None
@@ -3336,11 +3387,17 @@ def _kv_len_case(case, gen) -> dict:
           f"bindings: vs autograd of the plain forward max abs err "
           f"{err:.3e} (allclose at {tol}); again torch.equal {same}; ok "
           f"{ok}")
+    row = {"case": label, "launches": counts["flash_attention"],
+           "bwd_launches": counts["flash_attention_bwd"],
+           "route": "the bindings", "max_abs_err": err, "tol": tol,
+           "deterministic": same}
+    if dt == torch.bfloat16:
+        row["witness"] = _witness_check(
+            got, want, _flash_witness(**kw)([q, k, v], [do]), label)
+        ok = ok and row["witness"]["ok"]
+    row["ok"] = ok
     check(ok, f"flash_attention backward with kv_len {label}")
-    return {"case": label, "launches": counts["flash_attention"],
-            "bwd_launches": counts["flash_attention_bwd"],
-            "route": "the bindings", "max_abs_err": err, "tol": tol,
-            "deterministic": same, "ok": ok}
+    return row
 
 
 def _flash_fwd_lse_ms(q, k, v) -> dict:
@@ -3406,13 +3463,26 @@ def _sdpa_bwd_ms(q, k, v, causal: bool, gen) -> float:
                    10, 2, GRAD_SPIN)
 
 
+# the flash backward binding's ms at the training shapes (TRAIN_FLASH's
+# last 11, in PREFILL_ATTN's order) before the fused kernel, on an NVIDIA
+# H100 80GB HBM3 at 700.00 W (PERF.md): the first hand-written kernel
+# (FA2's split) and the parent tree of the fused kernel (the mean of two
+# runs beside it in one call, scripts/flash_bwd_compare.py)
+FLASH_BWD_FIRST_MS = (0.1949, 0.3677, 0.2655, 0.4316, 0.3377, 0.1094, 0.3114,
+                      0.6992, 0.2697, 0.0943, 0.4314)
+FLASH_BWD_PARENT_MS = (0.1962, 0.3644, 0.2635, 0.4279, 0.3345, 0.1091,
+                       0.3099, 0.6904, 0.2682, 0.0944, 0.4295)
+
+
 def _flash_bwd_shapes(gen) -> list:
     """The backward kernel alone (the bindings, inputs from the forward
-    with its lse) at every arch's training shape, beside its bound and
-    SDPA's backward wherever SDPA computes the same function."""
+    with its lse) at every arch's training shape, beside its bound, SDPA's
+    backward wherever SDPA computes the same function. The two earlier
+    kernels' times are constants from PERF.md: printed beside each shape,
+    and kept out of the rows, which go into the kernels line."""
     from repro_torch.kernels.flash_attention import kernel as fk
     rows = []
-    for case in TRAIN_FLASH[-len(PREFILL_ATTN):]:
+    for i, case in enumerate(TRAIN_FLASH[-len(PREFILL_ATTN):]):
         B, S, H, KV, Dh, causal, window, cap, *_, dt = case[:11]
         q, k, v = flash_inputs(case, gen)
         kw = dict(causal=causal, window=window, cap=cap)
@@ -3431,7 +3501,9 @@ def _flash_bwd_shapes(gen) -> list:
         lib = (f"none ({differs})" if differs else f"{lib_ms:.4f} ms")
         print(f"  flash_attention backward kernel {row['shape']}: {ms:.4f} "
               f"ms; SDPA's backward {lib}; bound {row['bound_ms']:.4f} ms "
-              f"by {row['bound_by']}")
+              f"by {row['bound_by']}; the first kernel "
+              f"{FLASH_BWD_FIRST_MS[i]:.4f} ms, "
+              f"the parent tree {FLASH_BWD_PARENT_MS[i]:.4f} ms (PERF.md)")
         rows.append(row)
     return rows
 

@@ -2,10 +2,14 @@
 the plain version in bf16 (what ``chip_smoke.py`` phase 10 (a) holds it
 to, at 3e-2) and an fp32 witness (the plain version on the same bf16
 inputs cast to fp32). Per seed and gradient: the largest distance of each
-to the witness, the elements past the 3e-2 check against the plain
-version (with the worst ones' three values), and the binding's time with
-the dK/dV kernel's head split as ``kernel.dkdv_split`` picks it and forced
-to 1 (one block per kv head's whole group).
+to the witness, whether the kernel passes the witness check of phase 10
+(a) (no further from the witness than the plain version, or within 3e-2
+of it), the elements past the 3e-2 check against the plain version (with
+the worst ones' three values), and the binding's time. The bf16 kernel
+feeds P and dS to their products as two bf16 halves each; a kernel that
+rounds either once must pass both checks on every seed at both shapes
+(with P rounded once, one dV element a shape failed the check against the
+plain version, PERF.md).
 
     python3 scripts/flash_bwd_witness.py [--seeds 4] [--shape starcoder2|recurrentgemma]
 
@@ -62,6 +66,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     B, S, H, KV, Dh, window = SHAPES[args.shape]
     kw = dict(causal=True, window=window)
+    failed = 0
     for seed in range(args.seeds):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         q = torch.randn(B, S, H, Dh, generator=gen, device="cuda")
@@ -77,28 +82,22 @@ def main(argv=None) -> int:
         for name, g, p, w in zip("qkv", got, plain, witness):
             g, p, w = g.float(), p.float(), w.float()
             bad = ((g - p).abs() > TOL + TOL * p.abs()).nonzero().tolist()
+            dk, dp = ((x - w).abs().max().item() for x in (g, p))
+            near = dk <= dp or torch.allclose(g, w, atol=TOL, rtol=TOL)
+            failed += bool(bad) + (not near)
             print(f"seed {seed} d{name}: kernel vs fp32 witness max "
-                  f"{(g - w).abs().max().item():.3e}, plain bf16 vs witness "
-                  f"{(p - w).abs().max().item():.3e}; {len(bad)} past the "
-                  f"{TOL} check against the plain version"
+                  f"{dk:.3e}, plain bf16 vs witness {dp:.3e} (witness "
+                  f"check {'ok' if near else 'FAILED'}); {len(bad)} past "
+                  f"the {TOL} check against the plain version"
                   + "".join(f"; at {tuple(i)} kernel {g[tuple(i)].item():.6f}"
                             f" plain {p[tuple(i)].item():.6f} witness "
                             f"{w[tuple(i)].item():.6f}" for i in bad[:3]))
     o, lse = kernel.flash_attention(*xs, lse=True, **kw)
     do = cot.bfloat16()
-    split = kernel.dkdv_split(B, S, H, KV, Dh, torch.bfloat16)
     ms = cuda_ms(lambda: kernel.flash_attention_bwd(*xs, o, lse, do, **kw))
-    orig = kernel.dkdv_split
-    kernel.dkdv_split = lambda *a: 1
-    try:
-        ms1 = cuda_ms(lambda: kernel.flash_attention_bwd(*xs, o, lse, do,
-                                                         **kw))
-    finally:
-        kernel.dkdv_split = orig
-    print(f"backward binding at {SHAPES[args.shape]}: {ms:.4f} ms with the "
-          f"head split {split}, {ms1:.4f} ms with each kv head's group in "
-          "one block")
-    return 0
+    print(f"backward binding at {SHAPES[args.shape]}: {ms:.4f} ms")
+    print(f"checks failed: {failed}")
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

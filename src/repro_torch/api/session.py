@@ -4,9 +4,9 @@ the port's registries and wrap the constructed runtime in one surface.
 Counterpart of ``repro/api/session.py``. ``build`` validates loudly:
 unknown registry names raise ``KeyError`` listing what is registered, a
 device-port env named as a workload or bad component kwargs raise
-``ValueError``. The one part of the reference the port does not run, the
-stream runtime's TPU meshes, raises ``NotImplementedError`` naming its
-ROADMAP item (``core/stream_runtime.py``); nothing runs in its place.
+``ValueError``. The stream runtime's meshes, ``pod`` and ``multipod``,
+build the production mesh over the live process group
+(``core/stream_runtime.py``) and raise on any other world size.
 
 ``Session`` wraps the engine contract (``run``/``state``/``run_from``)
 and adds ``fit`` (checkpointed training through ``core/trainer.Trainer``

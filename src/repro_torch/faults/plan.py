@@ -10,9 +10,10 @@ once, so a supervisor (``core/trainer.Trainer``) replaying interval j
 after recovery does not re-trip the fault that killed it; the recovered
 run then equals the fault-free run bit for bit.
 
-Sites and kinds (the port's ``mesh`` runtime has no worker threads, so
-of these only ``checkpoint`` fires in the port today; the others wait
-for the host runtime and serving, ROADMAP queue 1, items 4 and 6):
+Sites and kinds (each fires in the port where the reference fires it:
+``checkpoint`` in ``core/trainer.Trainer``, the thread and dispatch sites
+in the host runtime, ``core/host_runtime.py``, and ``dispatcher`` in
+serving, ``serve/server.py``):
 
   =============  =======================  ===========================
   site           where it fires           kinds

@@ -3,72 +3,93 @@
 // Replaces the `jax.custom_vjp` of src/repro/kernels/flash_attention/ops.py
 // (:41-48), which differentiates the jnp oracle: the TPU package has no
 // backward kernel, so its backward materialises the (B, H, Sq, Sk) scores.
-// This is the FA2/FA3 split of the same gradients, from the forward's row
-// log-sum-exp (`lse`, written by flash_attention.cu):
+// Here the same gradients come from the forward's row log-sum-exp (`lse`,
+// written by flash_attention.cu), with every sum in fp32 and no
+// floating-point atomics: every sum has one fixed order, so two calls give
+// equal gradients. Same masks and layout as the forward: causal, sliding
+// window, tanh soft-cap, `kv_len`, ragged Sq and Sk masked in the kernel,
+// Sq != Sk, GQA and MQA, the model's strided (B, S, H, Dh) layout read as
+// it is; dq, dk, dv written contiguous in the inputs' dtype.
 //
-//   (a) D = rowsum(dO o O)                                   fp32 (B, H, Sq)
-//   (b) per (b, kv head, 64-key tile): for the R = H / KV query heads of the
-//       group and every query tile the mask reaches,
+// bf16 (the training path), three launches:
+//   (a) rows: per (b, h, query) the pair (lse log2(e), D = rowsum(dO o O)),
+//       fp32, the query axis padded to whole 64-row tiles (zeros past Sq);
+//   (b) one warp-specialised kernel for dK, dV and dQ. A block per (key
+//       tile, chunk of its kv head's query heads, kv head, b) walks the
+//       query tiles the mask reaches, the last first, and for each its
+//       heads, and computes for each (key tile, query tile) pair, once:
 //         S^T = K Q^T, P^T = exp(S^T - lse), dP^T = V dO^T,
 //         dS^T = P^T o (dP^T - D) [o (1 - (s / cap)^2) under the soft-cap],
-//         dV += P^T dO, dK += dS^T Q
-//       in registers: the group's heads are summed inside the block, so GQA
-//       and MQA need no atomics;
-//   (c) per (b, head, 64-query tile): over the key tiles the mask reaches,
-//         S = Q K^T, P = exp(S - lse), dP = dO V^T, dS as above, dQ += dS K.
-// dQ and dK are scaled by Dh^-0.5 when stored. No floating-point atomics:
-// every sum has one fixed order, so two calls give equal gradients.
+//         dV += P^T dO, dK += dS^T Q (in registers, the block's keys),
+//         dQ_part = dS K (added into an fp32 workspace in key-tile order);
+//   (c) dq = the workspace times Dh^-0.5, in the inputs' dtype.
+// The block: one producer warpgroup (setmaxnreg 24) whose warp 0 keeps TMA
+// loads of Q, dO (64-query tiles) and the rows in flight through a ring of
+// 3 stages (2 at Dh 256) with full and empty mbarriers, and whose warp 1
+// adds each pair's dQ part into the workspace; two consumer warpgroups
+// (setmaxnreg 240) run the products on `wgmma` (csrc/wgmma.cuh), every
+// operand in shared memory (128-byte swizzled tiles, hopper.cuh). At
+// padded widths up to 128 the key tile is 128 keys and each consumer owns
+// 64 of them, all columns: it computes its S^T and dP^T (m64n64), writes
+// P^T and dS^T to shared memory as bf16, and runs dV, dK and its dQ part
+// over its keys; the second consumer adds its dQ part to the first's in
+// shared memory. At 192 and 256 (Dh 160, 256) the registers hold half the
+// columns: the key tile is 64 keys, consumer 1 computes S^T and dP^T for
+// both, and each runs dV, dK and dQ on its column part (0-127 and
+// 128-DP), so no part recomputes S^T or dP^T. A consumer waits its
+// products with wgmma.wait_group 1 (dV, dK: the stage is free) and 0 (dQ).
+// It does not issue the next tile's S^T and dP^T before this tile's
+// elementwise work: at width 128 its dK, dV (128 fp32 registers), two S/dP
+// tiles (128) and its dQ part do not fit the 240 it has, and at 16-64,
+// where they would, ptxas serialised every wgmma of that form (a
+// WARPGROUP.DEPBAR after each HGMMA in the SASS), slower than without it.
 //
-// Same masks and layout as the forward: causal, sliding window, tanh
-// soft-cap, `kv_len`, ragged Sq and Sk masked in the kernel, Sq != Sk, the
-// model's strided (B, S, H, Dh) layout read as it is. dq, dk, dv are written
-// contiguous in the inputs' dtype; every sum is fp32.
-//
-// bf16 (the training path): the five products run on the tensor cores as
-// `wgmma` chains (csrc/wgmma.cuh), one warpgroup per block, operands brought
-// by TMA (hopper.cuh: the forward's tensor maps and 128-byte swizzled tiles).
-// In (b) the K and V tiles (64 keys) come once; Q and dO tiles of 32 queries
-// come through a 2-stage ring, so the next tile's loads overlap this one's
-// products. S^T and dP^T are m64n32k16 chains with both operands in shared
-// memory (K-major), P^T and dS^T go to bf16 A fragments in registers, and
-// dV, dK accumulate as m64n{PW}k16 chains with dO, Q read MN-major, as the
-// forward reads V. (c) mirrors the forward: Q and dO (64 rows) come once, K
-// and V tiles of 32 keys through the ring, dQ += dS K with K MN-major. P
-// and dS enter their products as two bf16 halves (hi + lo, two chains):
-// rounded to one bf16 each, they put single elements of dK and dQ past
-// the 3e-2 check against the plain version's fp32 sums at the training
-// shapes; two halves keep about fp32's precision
-// (scripts/flash_bwd_witness.py), at 8 chains a tile pair where 5 would
-// do. Dh
-// 120 and 160 run at the padded widths 128 and 192 as in the forward (zero
-// columns from TMA, only columns < Dh stored). Register budget: (b) holds dK
-// and dV, 2 x PW / 2 fp32 registers a thread. At padded widths up to 128, PW
-// is the whole width (128 registers at Dh 128); at 192 and 256 the two
-// accumulators would need 192 and 256, so the block owns a part of the
-// columns, PW = 64 (3 parts) and 128 (2 parts), and each part's block
-// recomputes S^T and dP^T over the whole Dh: with P parts (b) runs 2P + 2
-// products where 4 would do, 1.5x at Dh 256 (RecurrentGemma, P = 2) and 2x
-// at Dh 160 (StableLM-2, P = 3). (c)'s dQ is DP / 2 registers, as the
-// forward's O. ptxas (the build log) fits (b) in 215 registers at Dh 128
-// and 254 at Dh 256, (c) in 192 at Dh 256, no spills.
+// dQ in a fixed order: a pair's dQ part (64 x DP fp32) is written over the
+// ring stage whose Q and dO it was computed from (the same bytes), and the
+// writer adds it to the workspace with one bulk reduce-add (the first key
+// tile to reach a query tile stores instead) once an int semaphore per
+// (slab, b, h, query tile) says every lower key tile of its slab has
+// added its own; it then frees the stage and counts itself in. Blocks are
+// dispatched in key-tile order, so a block only waits on blocks that are
+// running or done. Non-causal shapes spread their key tiles over slabs (key
+// tile n into slab n mod slabs, kernel.bwd_slabs): every key tile reaches
+// every query tile at once there, and one slab would chain all their
+// adds; (c) adds the slabs in order. Where one block a key tile leaves
+// most of the card's SMs idle (StarCoder2-3B's 2 kv heads), the launch
+// picks a `target` that splits each key tile's query heads over blocks by
+// its work (choose_target, plan_key_tile: causal, the first key tiles into
+// more blocks than the last); their fp32 dK, dV parts are added in chunk
+// order through an int semaphore per key tile, the last chunk writing the
+// gradients. A consumer's wait on that semaphore does not trap (a trap in
+// the consumers' code costs them their register budget, PERF.md): after
+// its time-out it sets a fault word, and (c) traps on it, so the launch
+// fails instead of handing back wrong sums. P and dS
+// enter their products as two bf16 halves each (hi + lo: about fp32's
+// precision; one rounding of P put single dV elements past the 3e-2 check
+// against the plain version, scripts/flash_bwd_witness.py): 8 product
+// chains a pair where 5 would do. Dh 120 and 160 run at the padded widths
+// 128 and 192 (zero columns from TMA, only columns < Dh stored).
 //
 // fp32: CUDA-core kernels (fp32 FMAs; TF32 would not hold the fp32
-// tolerance), (b) one warp per 8 keys (4 at Dh > 128) with a lane per query
-// of a 32-query tile for S^T and dP^T and a lane per head-dim column for dK
-// and dV; (c) one warp per 8 query rows (4 at Dh > 128), a lane per key.
+// tolerance): D by a row-dot pass, then dK/dV with one warp per 8 keys (4
+// at Dh > 128) and a lane per query of a 32-query tile for S^T and dP^T
+// and a lane per head-dim column for dK and dV, the group's heads summed in
+// the block; dQ with one warp per 8 query rows (4 at Dh > 128), a lane per
+// key.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense), at
 // StarCoder2-3B's training shape (bf16, B=4, S=512, H=24, KV=2, Dh=128,
 // causal; chip_smoke._bwd_times): q, o, dO, dq read and written (4 x 12.6
-// MB), k, v, dk, dv (4 x 1.0 MB), lse and D: 54.5 MB -> 16.3 us; the five
-// products over the causal pairs, 10 * B * H * 131,328 * Dh = 16.1 GFLOP ->
-// 16.3 us. Both bounds meet. The route this replaces, the VJP of the padded
-// plain version, took 2.81 ms there (PERF.md §6), moving the fp32
-// (B, H, S, S) scores through device memory several times; here no score
-// leaves the registers, and what is left is the products (S and dP
-// recomputed in each of (b) and (c), P and dS in two halves: 10 chains
-// where the bound counts 5), the elementwise work between them, and the
-// loads of Q and dO once per key tile.
+// MB), k, v, dk, dv (4 x 1.0 MB), lse: 54.5 MB -> 16.3 us; the five
+// products over the causal pairs, 10 * B * H * 131,328 * Dh = 16.1 GFLOP
+// -> 16.3 us. Both bounds meet. This kernel computes 20 of the 32 (128-key,
+// 64-query) tile pairs of each head, 163,840 pairs where the mask lets
+// 131,328 through, in 8 chains: 2 x the bound's products, 32.6 us at the
+// peak; it moves each pair's 32 KB dQ part through L2 (61 MB of
+// reduce-adds) and the 25 MB workspace, with o and dO for the rows, through
+// device memory once more (about 17 us at 3.35 TB/s). Its time, and what
+// holds it back (shared-memory traffic of two-operand wgmma, consumers in
+// step), are in PERF.md.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -81,27 +102,17 @@
 
 namespace {
 
-constexpr int kWgThreads = 128;
-constexpr int kStages = 2;
-
 struct BwdArgs {
   int H, KV, Sq, Sk, causal, window, kv_len;
   float cap, scale;
-  int split;  // (b): blocks sharing one kv head's query heads
+  // bf16: the (key tile, query tile) pairs a block aims at, which sets how
+  // a key tile's query heads are split over blocks (choose_target,
+  // plan_key_tile); and the dQ slabs key tiles add into. fp32: unused.
+  int target, slabs;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 // Whether query qpos attends to key kpos (the forward's masks; keys past Sk
@@ -115,8 +126,9 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, const BwdArgs& a) {
 }
 
 // P and dS of one (query, key) pair from the raw product s = q . k, the
-// row's lse and D and dP = dO . v; returns P, sets ds (the gradient of the
-// capped, scaled score times the cap's derivative; the scale comes last).
+// row's lse (base 2) and D and dP = dO . v; returns P, sets ds (the
+// gradient of the capped, scaled score times the cap's derivative; the
+// scale comes last). Both are 0 where the pair is masked.
 __device__ __forceinline__ float prob_and_ds(float s, float dp, float lse2,
                                              float dd, bool ok,
                                              const BwdArgs& a, float& ds) {
@@ -127,7 +139,7 @@ __device__ __forceinline__ float prob_and_ds(float s, float dp, float lse2,
     capd = 1.f - t * t;
   }
   const float p = ok ? fast_exp2(x * kLog2e - lse2) : 0.f;
-  ds = p * (dp - dd) * capd;
+  ds = ok ? p * (dp - dd) * capd : 0.f;
   return p;
 }
 
@@ -153,368 +165,793 @@ __device__ __forceinline__ void query_range(int k0, int rows, int tile,
   first = a.causal ? k0 / tile * tile : 0;
 }
 
-// (b)'s query heads for block `sp` of kv head g's split group: [first, end)
-__device__ __forceinline__ void head_chunk(int g, int sp, const BwdArgs& a,
-                                           int& first, int& end) {
-  const int R = a.H / a.KV, per = (R + a.split - 1) / a.split;
-  first = g * R + min(R, sp * per);
-  end = g * R + min(R, (sp + 1) * per);
+// ------------------------------------------------ synchronisation
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
-// (b)'s sums of one key row and column pair, dK already scaled: stored in
-// the gradients' dtype when the group is whole, else as fp32 partial sums
-// in `part` ([2][split][B][Sk][KV][Dh]: dK's, then dV's), which
-// flash_bwd_sum_parts adds in order.
-template <typename T>
-__device__ __forceinline__ void store_kv(T* dk, T* dv, float* part, Strides sdk,
-                                         Strides sdv, int b, int kpos, int g,
-                                         int col, int Dh, int sp, float kx,
-                                         float vx, const BwdArgs& a) {
-  if (part == nullptr) {
-    dk[b * sdk.b + kpos * sdk.s + g * sdk.h + col] = from_float<T>(kx);
-    dv[b * sdv.b + kpos * sdv.s + g * sdv.h + col] = from_float<T>(vx);
-    return;
+// The producer's and the writer's waits give up: 2^24 polls (past the
+// first few, each with a short sleep: seconds in all, where a legitimate
+// wait lasts microseconds) mean a protocol fault, and a trap, an error
+// the host sees, is better than a hung card. The consumers wait on
+// barriers only those two threads and the consumers themselves complete,
+// so a fault traps there first. No consumer code may trap: with a trap
+// in the consumer branch ptxas compiles it within the kernel's 168
+// registers at entry instead of setmaxnreg's 240 (spilled, every wgmma
+// serialised).
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar,
+                                                  uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n > 64) __nanosleep(32);
+    if (n > (1u << 24)) __trap();
   }
-  const size_t n = (size_t)gridDim.z * a.Sk * a.KV * Dh;
-  const size_t at = (((size_t)b * a.Sk + kpos) * a.KV + g) * Dh + col;
-  part[sp * n + at] = kx;
-  part[(a.split + sp) * n + at] = vx;
 }
 
-// ------------------------------------------------ (a) D = rowsum(dO o O)
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// spin until *p reaches `want` (other blocks' count); after 2^23 polls
+// (an acquire load from L2 and a short sleep each, 4-10 s in all) trap,
+// or in a consumer (kTrap false) set *fault and go on: the dQ cast pass
+// traps on it, so a wrong sum never leaves the launch unseen
+template <bool kTrap>
+__device__ __forceinline__ void wait_count(const int* p, int want,
+                                           int* fault = nullptr) {
+  for (uint32_t n = 0; ld_acquire(p) < want; ++n) {
+    __nanosleep(64);
+    if (n > (1u << 23)) {
+      if constexpr (kTrap)
+        __trap();
+      else
+        *reinterpret_cast<volatile int*>(fault) = 1;
+      return;
+    }
+  }
+}
+
+__device__ __forceinline__ void count_in(int* p) {
+  __threadfence();
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(1)
+               : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// generic-proxy shared-memory writes made visible to wgmma and bulk copies
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 1-D bulk copy global -> shared, completing on `bar` (16-byte multiples)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// shared -> global, stored (add = false) or added element-wise in fp32;
+// committed as one bulk group
+__device__ __forceinline__ void bulk_store(float* dst, uint32_t src,
+                                           uint32_t bytes, bool add) {
+  if (add)
+    asm volatile(
+        "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+        "[%1], %2;\n" ::"l"(dst),
+        "r"(src), "r"(bytes)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+            dst),
+        "r"(src), "r"(bytes)
+        : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// at most N of this thread's bulk groups still reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// at most N of this thread's bulk groups not yet done writing
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------ fp32 (a): D = rowsum(dO o O)
 // one warp per (b, s, h) row; D at ((b * H + h) * Sq + s)
-template <typename T>
-__global__ void flash_bwd_dot(const T* __restrict__ o, const T* __restrict__ dout,
-                              Strides so, Strides sd, float* __restrict__ D,
-                              int H, int Sq, int Dh, int rows) {
+__global__ void flash_bwd_dot(const float* __restrict__ o,
+                              const float* __restrict__ dout, Strides so,
+                              Strides sd, float* __restrict__ D, int H, int Sq,
+                              int Dh, int rows) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const int h = row % H, s = (row / H) % Sq, b = row / (H * Sq);
-  const T* orow = o + b * so.b + s * so.s + h * so.h;
-  const T* drow = dout + b * sd.b + s * sd.s + h * sd.h;
+  const float* orow = o + b * so.b + s * so.s + h * so.h;
+  const float* drow = dout + b * sd.b + s * sd.s + h * sd.h;
   float acc = 0.f;
-  for (int d = lane; d < Dh; d += 32)
-    acc = fmaf(to_float(orow[d]), to_float(drow[d]), acc);
+  for (int d = lane; d < Dh; d += 32) acc = fmaf(orow[d], drow[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
   if (lane == 0) D[((size_t)b * H + h) * Sq + s] = acc;
 }
 
-// ------------------------------------------------ bf16, wgmma + TMA
-constexpr int kKeyRows = 64;  // (b): keys per block, the M of its products
-constexpr int kQCols = 32;    // (b): queries per ring tile
-constexpr int kQRows = 64;    // (c): query rows per block
-constexpr int kKCols = 32;    // (c): keys per ring tile
-
-// (b)'s dK/dV column part: the whole padded width up to 128, else 64 (192)
-// or 128 (256), so the two accumulators stay within the register budget.
-template <int DP>
-constexpr int kPart = DP <= 128 ? DP : (DP == 192 ? 64 : 128);
-
-// A 64 x 32 accumulator (register 4c + 2r + e: row 16 warp + lane / 4 + 8r,
-// column 8c + 2 (lane % 4) + e) as bf16 A fragments of two k16 steps.
-__device__ __forceinline__ void pack_a(const float (&x)[16], uint32_t (&a)[2][4]) {
+// ------------------------------------------------ bf16 (a): the rows
+// one warp per (b, s, h), s < Sq_pad; rows[((b * H + h) * Sq_pad + s) * 2]
+// = (lse log2(e), D), zeros past Sq
+__global__ void flash_bwd_rows(const __nv_bfloat16* __restrict__ o,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ lse, Strides so,
+                               Strides sd, float* __restrict__ rows, int H,
+                               int Sq, int Sq_pad, int Dh, int n_rows) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;
+  const int h = row % H, s = (row / H) % Sq_pad, b = row / (H * Sq_pad);
+  float acc = 0.f;
+  if (s < Sq) {
+    const __nv_bfloat16* orow = o + b * so.b + s * so.s + h * so.h;
+    const __nv_bfloat16* drow = dout + b * sd.b + s * sd.s + h * sd.h;
+    for (int d = lane; d < Dh; d += 32)
+      acc = fmaf(to_float(orow[d]), to_float(drow[d]), acc);
+  }
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    a[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
-    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
+  if (lane == 0) {
+    const size_t bh = (size_t)b * H + h;
+    float2 out = make_float2(s < Sq ? lse[bh * Sq + s] * kLog2e : 0.f, acc);
+    *reinterpret_cast<float2*>(rows + (bh * Sq_pad + s) * 2) = out;
   }
 }
 
-// x less its bf16 rounding: the low half of the two-bf16 split x = hi + lo
-__device__ __forceinline__ void bf16_residual(float (&x)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    x[i] -= __bfloat162float(__float2bfloat16_rn(x[i]));
+// ------------------------------------------------ bf16 (b): the fused kernel
+constexpr int kQT = 64;         // queries a tile: the N of S^T and dP^T
+constexpr int kThreads = 384;   // producer warpgroup + two consumers
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+
+// keys a block: 128 (a consumer's 64 each) up to padded width 128, else 64
+template <int DP>
+constexpr int kKeyTile = DP <= 128 ? 128 : 64;
+template <int DP>
+constexpr bool kOwnKeys = DP <= 128;
+template <int DP>
+constexpr int kRing = DP <= 192 ? 3 : 2;
+
+// byte offsets into the block's shared memory (1024-aligned)
+template <int DP>
+struct Smem {
+  static constexpr int KT = kKeyTile<DP>;
+  using KTile = Tile<DP, KT>;
+  using QTile = Tile<DP, kQT>;
+  using PTile = Tile<64, KT>;  // P^T, dS^T: keys x 64 queries (128-byte rows)
+  // a stage: Q then dO; afterwards the pair's dQ part (64 x DP fp32, the
+  // same bytes)
+  static constexpr int kStage = 2 * QTile::kBytes;
+  static constexpr int kK = 0;
+  static constexpr int kV = KTile::kBytes;
+  static constexpr int kRingOff = 2 * KTile::kBytes;
+  static constexpr int kP = kRingOff + kRing<DP> * kStage;  // P^T, high half
+  static constexpr int kPl = kP + PTile::kBytes;   // P^T, low half
+  static constexpr int kDh = kPl + PTile::kBytes;  // dS^T, high half
+  static constexpr int kDl = kDh + PTile::kBytes;  // dS^T, low half
+  static constexpr int kRows = kDl + PTile::kBytes;  // per stage 64 x (lse2, D)
+  static constexpr int kRowBytes = kQT * 8;
+  static constexpr int kBars = kRows + kRing<DP> * kRowBytes;
+  // kv, then per stage: full, empty, stage_free, dq_half, dq_full; then
+  // ready, freed (the split-column handoff of P^T and dS^T)
+  static constexpr int kNumBars = 1 + 5 * kRing<DP> + 2;
+  static constexpr size_t kAlloc = kBars + 8 * kNumBars + 1024;
+  static_assert(kStage == kQT * DP * 4, "a stage holds a dQ part");
+  static_assert(kAlloc <= 232448, "shared memory");
+};
+
+struct Bars {
+  uint32_t base;
+  int stages;
+  __device__ uint32_t kv() const { return base; }
+  __device__ uint32_t full(int s) const { return base + 8 * (1 + s); }
+  __device__ uint32_t empty(int s) const { return base + 8 * (1 + stages + s); }
+  __device__ uint32_t stage_free(int s) const {
+    return base + 8 * (1 + 2 * stages + s);
+  }
+  __device__ uint32_t dq_half(int s) const {
+    return base + 8 * (1 + 3 * stages + s);
+  }
+  __device__ uint32_t dq_full(int s) const {
+    return base + 8 * (1 + 4 * stages + s);
+  }
+  __device__ uint32_t ready() const { return base + 8 * (1 + 5 * stages); }
+  __device__ uint32_t freed() const { return base + 8 * (2 + 5 * stages); }
+};
+
+// The schedule, on the host (the grid) and in each block: key tile n
+// visits the query tiles [first, first + len) its keys reach
+// (query_range), and its kv head's R query heads go to `chunks` blocks of
+// `per` heads, as many heads a block as keep it near `target` tile pairs:
+// heavy key tiles (causal: the first) split into more blocks than light
+// ones. A (b, kv head) row of the grid holds each key tile's chunks in
+// key-tile order, so every block a block waits on (a lower key tile's, a
+// lower chunk's) was dispatched before it.
+struct KeyTilePlan {
+  int first, len, per, chunks;
+};
+
+__host__ __device__ inline KeyTilePlan plan_key_tile(int n, int KT, int R,
+                                                     const BwdArgs& a) {
+  const int k0 = n * KT;
+  int end = a.Sq;
+  if (a.window > 0 && k0 + KT - 1 + a.window < end)
+    end = k0 + KT - 1 + a.window;
+  if (a.kv_len >= 0 && k0 >= a.kv_len) end = 0;
+  const int q_first = a.causal ? k0 : 0;
+  KeyTilePlan t;
+  t.first = q_first / kQT;
+  t.len = end > q_first ? (end - 1) / kQT - t.first + 1 : 0;
+  const int per = t.len > 0 ? a.target / t.len : R;
+  t.per = per < 1 ? 1 : (per > R ? R : per);
+  t.chunks = (R + t.per - 1) / t.per;
+  return t;
 }
 
-// X (64 x 32) = A B^T over the padded head dim, both 64-row A and 32-row B
-// tiles K-major in shared memory; issued, not committed.
+// A block's place and its walk: iteration i takes query tile
+// m_last - i / nh and head h_first + i % nh (the last query tile first, so
+// the key tiles of a query tile reach it in key-tile order).
+struct Walk {
+  int b, g, sp, nchunks, kt, k0, h_first, nh, m_last, n_iter;
+  __device__ int m(int i) const { return m_last - i / nh; }
+  __device__ int h(int i) const { return h_first + i % nh; }
+};
+
 template <int DP>
-__device__ __forceinline__ void issue_ss(float (&x)[16], uint32_t a_tile,
-                                         uint32_t b_tile) {
+__device__ __forceinline__ Walk make_walk(const BwdArgs& a) {
+  constexpr int KT = kKeyTile<DP>;
+  const int R = a.H / a.KV;
+  Walk w;
+  w.g = blockIdx.y;
+  w.b = blockIdx.z;
+  int x = blockIdx.x, n = 0;
+  KeyTilePlan t = plan_key_tile(0, KT, R, a);
+  while (x >= t.chunks) {
+    x -= t.chunks;
+    t = plan_key_tile(++n, KT, R, a);
+  }
+  w.kt = n;
+  w.sp = x;
+  w.nchunks = t.chunks;
+  w.k0 = n * KT;
+  w.h_first = w.g * R + x * t.per;
+  w.nh = min(w.g * R + R, w.h_first + t.per) - w.h_first;
+  w.m_last = t.first + t.len - 1;
+  w.n_iter = w.nh * t.len;
+  return w;
+}
+
+// The first key tile whose query range holds query tile m: the key tiles
+// that add to m's dQ are that one and the ones after it (each into its
+// slab, in order).
+__device__ __forceinline__ int first_key_tile(int m, int KT, const BwdArgs& a) {
+  if (a.window <= 0) return 0;
+  const long long x = (long long)m * kQT - KT + 1 - a.window;
+  return x < 0 ? 0 : (int)(x / KT) + 1;
+}
+
+// A bf16 pair into a 128-byte-swizzled tile of 128-byte rows: row `row`,
+// 16-byte chunk `chunk`, 4 bytes at lane % 4.
+__device__ __forceinline__ void st_swizzled(uint32_t tile, int row, int chunk,
+                                            int lane, uint32_t v) {
+  const uint32_t addr =
+      tile + row * 128 + ((chunk ^ (row & 7)) << 4) + 4 * (lane & 3);
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// S^T (64 keys from row r0 of the key tiles x 64 queries) = K Q^T and
+// dP^T = V dO^T, both operands K-major; issued and committed.
+template <int DP>
+__device__ __forceinline__ void issue_sdp(float (&st)[32], float (&dpt)[32],
+                                          uint32_t sk, uint32_t sv,
+                                          uint32_t stage) {
+  constexpr int KT = kKeyTile<DP>;
+  using QT = Tile<DP, kQT>;
+  wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk)
-    WgmmaSS<32>::run(x, desc_kmajor<DP, 64>(a_tile, kk),
-                     desc_kmajor<DP, 32>(b_tile, kk), kk > 0);
+    WgmmaSST<64, 0, 0>::run(st, desc_kmajor<DP, KT>(sk, kk),
+                            desc_kmajor<DP, kQT>(stage, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    WgmmaSST<64, 0, 0>::run(dpt, desc_kmajor<DP, KT>(sv, kk),
+                            desc_kmajor<DP, kQT>(stage + QT::kBytes, kk),
+                            kk > 0);
+  wgmma_commit();
 }
 
-// acc (64 x N) += A (64 x 32, registers) B (32 x N, MN-major from a 32-row
-// tile starting at column slab `b_tile`); issued, not committed.
-template <int DP, int N>
-__device__ __forceinline__ void issue_rs(float (&acc)[N / 2],
-                                         const uint32_t (&a)[2][4],
-                                         uint32_t b_tile) {
+// P^T and dS^T of one 64 x 64 tile from S^T and dP^T (rows: keys from
+// key_row, the tiles' row R0; columns: queries q0..), written to the P and
+// dS tiles as bf16 halves (hi, then the residual lo). kCap and kFull (the
+// whole tile visible: no per-element mask) are fixed outside the unrolled
+// body, so it holds no branch.
+template <int R0, bool kCap, bool kFull>
+__device__ __forceinline__ void softmax_grad_tile(
+    const float (&st)[32], const float (&dpt)[32], const float* rows_s,
+    int q0, int key_row, uint32_t sp, uint32_t spl, uint32_t sdh,
+    uint32_t sdl, const BwdArgs& a) {
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int kr = key_row + 16 * warp + (lane >> 2);
+  const int qc = 2 * (lane & 3);
+  const float scale2 = a.scale * kLog2e;  // score to base-2 exponent
+  const float to_cap = kCap ? a.scale / a.cap : 0.f, cap2 = a.cap * kLog2e;
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-    WgmmaRS<N>::run(acc, a[kk], desc_mnmajor<DP, 32>(b_tile, kk));
-}
-
-// (b): grid (key tiles x parts, KV, B), one warpgroup.
-template <int DH>
-__global__ void __launch_bounds__(kWgThreads)
-flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap map_q,
-                    const __grid_constant__ CUtensorMap map_k,
-                    const __grid_constant__ CUtensorMap map_v,
-                    const __grid_constant__ CUtensorMap map_do,
-                    const float* __restrict__ lse, const float* __restrict__ D,
-                    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                    float* __restrict__ part, Strides sdk, Strides sdv,
-                    BwdArgs a) {
-  constexpr int DP = kPadded<DH>;
-  constexpr int PW = kPart<DP>;
-  constexpr int kParts = DP / PW;
-  using KT = Tile<DP, kKeyRows>;
-  using QT = Tile<DP, kQCols>;
-  // byte offset of column part p inside a tile: PW / 64 slabs per part
-  constexpr int kPartSlabs = PW >= 64 ? PW / 64 : 1;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const uint32_t sk = smem_addr(smem), sv = sk + KT::kBytes;
-  const uint32_t sring = sv + KT::kBytes;  // stage s: Q at +2s tiles, dO at +2s+1
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 2 * KT::kBytes +
-                                               2 * kStages * QT::kBytes);
-  const uint32_t bar_kv = smem_addr(bars);
-  const uint32_t bar_q = bar_kv + 8;  // stage s at + 8s
-
-  const int cpart = blockIdx.x % kParts, kt = blockIdx.x / kParts;
-  const int g = blockIdx.y / a.split, sp = blockIdx.y % a.split;
-  const int b = blockIdx.z;
-  const int k0 = kt * kKeyRows;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  int q_first, q_end, h_first, h_end;
-  query_range(k0, kKeyRows, kQCols, a, q_first, q_end);
-  head_chunk(g, sp, a, h_first, h_end);
-  const int nq = q_end > q_first ? (q_end - q_first + kQCols - 1) / kQCols : 0;
-  const int n_iter = (h_end - h_first) * nq;  // (head, query tile), heads outer
-
-  auto load_q = [&](int i) {
-    const uint32_t bar = bar_q + 8 * (i % kStages);
-    const uint32_t dst = sring + 2 * (i % kStages) * QT::kBytes;
-    const int h = h_first + i / nq, q0 = q_first + (i % nq) * kQCols;
-    mbar_expect_tx(bar, 2 * QT::kBytes);
-    load_tile<DP, kQCols>(dst, &map_q, bar, h, q0, b);
-    load_tile<DP, kQCols>(dst + QT::kBytes, &map_do, bar, h, q0, b);
-  };
-  if (tid == 0) {
-    mbar_init(bar_kv, 1);
-    for (int s = 0; s < kStages; ++s) mbar_init(bar_q + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (n_iter > 0) {
-      mbar_expect_tx(bar_kv, 2 * KT::kBytes);
-      load_tile<DP, kKeyRows>(sk, &map_k, bar_kv, g, k0, b);
-      load_tile<DP, kKeyRows>(sv, &map_v, bar_kv, g, k0, b);
-    }
-    for (int j = 0; j < kStages && j < n_iter; ++j) load_q(j);
-  }
-  __syncthreads();
-
-  const int row_a = warp * 16 + (lane >> 2);  // keys k0 + row_a, + 8
-  const int col_q = 2 * (lane & 3);
-  float acc_v[PW / 2], acc_k[PW / 2];
+  for (int c = 0; c < 8; ++c) {
+    const float4 rw =
+        *reinterpret_cast<const float4*>(rows_s + 2 * (8 * c + qc));
+    const float lse2[2] = {rw.x, rw.z}, dd[2] = {rw.y, rw.w};
 #pragma unroll
-  for (int i = 0; i < PW / 2; ++i) acc_v[i] = acc_k[i] = 0.f;
-  float st[16], dpt[16];
-  uint32_t pa[2][4], da[2][4];
-  const uint32_t part_off = cpart * kPartSlabs * QT::kSlabBytes;
-
-  if (n_iter > 0) mbar_wait(bar_kv, 0);
-  for (int i = 0; i < n_iter; ++i) {
-    const int stage = i % kStages;
-    const uint32_t qs = sring + 2 * stage * QT::kBytes, dos = qs + QT::kBytes;
-    const int h = h_first + i / nq, q0 = q_first + (i % nq) * kQCols;
-    mbar_wait(bar_q + 8 * stage, (i / kStages) & 1);
-    wgmma_fence();
-    issue_ss<DP>(st, sk, qs);    // S^T = K Q^T
-    issue_ss<DP>(dpt, sv, dos);  // dP^T = V dO^T
-    wgmma_commit();
-    // this thread's query columns: lse (base 2) and D
-    float lse2[4][2], dd[4][2];
-    const size_t row0 = ((size_t)b * a.H + h) * a.Sq;
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
+    for (int r = 0; r < 2; ++r) {
+      const int kpos = kr + 8 * r, row = R0 + 16 * warp + (lane >> 2) + 8 * r;
+      float p[2], ds[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int qpos = q0 + 8 * c + col_q + e;
-        const bool in = qpos < a.Sq;
-        lse2[c][e] = in ? lse[row0 + qpos] * kLog2e : 0.f;
-        dd[c][e] = in ? D[row0 + qpos] : 0.f;
-      }
-    wgmma_wait_all();
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int kpos = k0 + row_a + 8 * r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int idx = 4 * c + 2 * r + e, qpos = q0 + 8 * c + col_q + e;
-          float ds;
-          st[idx] = prob_and_ds(st[idx], dpt[idx], lse2[c][e], dd[c][e],
-                                visible(qpos, kpos, a), a, ds);
-          dpt[idx] = ds;
+        const int idx = 4 * c + 2 * r + e;
+        float x2, capd = 1.f;
+        if (kCap) {
+          const float th = tanhf(st[idx] * to_cap);
+          x2 = cap2 * th;
+          capd = 1.f - th * th;
+        } else {
+          x2 = st[idx] * scale2;
         }
+        const bool ok = kFull || visible(q0 + 8 * c + qc + e, kpos, a);
+        p[e] = ok ? fast_exp2(x2 - lse2[e]) : 0.f;
+        // masked: p = 0 and dp - D finite (zero rows past Sq), so ds = 0
+        ds[e] = p[e] * (dpt[idx] - dd[e]);
+        if (kCap) ds[e] *= capd;
+      }
+      const __nv_bfloat162 ph = __floats2bfloat162_rn(p[0], p[1]);
+      const __nv_bfloat162 dh = __floats2bfloat162_rn(ds[0], ds[1]);
+      st_swizzled(sp, row, c, lane, *reinterpret_cast<const uint32_t*>(&ph));
+      st_swizzled(spl, row, c, lane,
+                  pack_bf16(p[0] - __low2float(ph), p[1] - __high2float(ph)));
+      st_swizzled(sdh, row, c, lane, *reinterpret_cast<const uint32_t*>(&dh));
+      st_swizzled(sdl, row, c, lane,
+                  pack_bf16(ds[0] - __low2float(dh), ds[1] - __high2float(dh)));
     }
-    // dV += P^T dO, dK += dS^T Q, P and dS as two bf16 halves each (hi,
-    // then lo into the same registers): their products keep about fp32's
-    // precision, as the plain version's fp32 gradients do
-    pack_a(st, pa);
-    pack_a(dpt, da);
-    wgmma_fence();
-    issue_rs<DP, PW>(acc_v, pa, dos + part_off);
-    issue_rs<DP, PW>(acc_k, da, qs + part_off);
-    wgmma_commit();
-    bf16_residual(st);
-    bf16_residual(dpt);
-    wgmma_wait_all();
-    pack_a(st, pa);
-    pack_a(dpt, da);
-    wgmma_fence();
-    issue_rs<DP, PW>(acc_v, pa, dos + part_off);
-    issue_rs<DP, PW>(acc_k, da, qs + part_off);
-    wgmma_commit();
-    wgmma_wait_all();
-    __syncthreads();  // every warp is done with this stage
-    if (tid == 0 && i + kStages < n_iter) load_q(i + kStages);
   }
+  fence_async_smem();
+}
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kpos = k0 + row_a + 8 * r;
-    if (kpos >= a.Sk) continue;
-#pragma unroll
-    for (int c = 0; c < PW / 8; ++c) {
-      const int col = cpart * PW + 8 * c + col_q;  // columns past DH not stored
-      if (col >= DH) continue;
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        store_kv(dk, dv, part, sdk, sdv, b, kpos, g, col + e, DH, sp,
-                 acc_k[4 * c + 2 * r + e] * a.scale, acc_v[4 * c + 2 * r + e],
-                 a);
-    }
+template <int R0>
+__device__ __forceinline__ void softmax_grad(const float (&st)[32],
+                                             const float (&dpt)[32],
+                                             const float* rows_s, int q0,
+                                             int key_row, uint32_t sp,
+                                             uint32_t spl, uint32_t sdh,
+                                             uint32_t sdl, const BwdArgs& a) {
+  const bool full = q0 + kQT <= a.Sq && key_row + 64 <= a.Sk &&
+                    (!a.causal || key_row + 63 <= q0) &&
+                    (a.window <= 0 || key_row > q0 + kQT - 1 - a.window) &&
+                    (a.kv_len < 0 || key_row + 64 <= a.kv_len);
+  if (a.cap > 0.f) {
+    if (full)
+      softmax_grad_tile<R0, true, true>(st, dpt, rows_s, q0, key_row, sp, spl,
+                                        sdh, sdl, a);
+    else
+      softmax_grad_tile<R0, true, false>(st, dpt, rows_s, q0, key_row, sp,
+                                         spl, sdh, sdl, a);
+  } else {
+    if (full)
+      softmax_grad_tile<R0, false, true>(st, dpt, rows_s, q0, key_row, sp,
+                                         spl, sdh, sdl, a);
+    else
+      softmax_grad_tile<R0, false, false>(st, dpt, rows_s, q0, key_row, sp,
+                                          spl, sdh, sdl, a);
   }
 }
 
-// (c): grid (query tiles, H, B), one warpgroup.
+// dV += P^T dO, dK += dS^T Q (P and dS each as its two halves) over one
+// query tile, on columns [COL0, COL0 + N), rows R0.. of the P and dS
+// tiles; then the dQ part dq = dS K over the same keys; two commit groups.
+template <int DP, int N, int R0, int COL0>
+__device__ __forceinline__ void issue_products(float (&acc_v)[N / 2],
+                                               float (&acc_k)[N / 2],
+                                               float (&dq)[N / 2],
+                                               uint32_t stage, uint32_t sk,
+                                               uint32_t sp, uint32_t spl,
+                                               uint32_t sdh, uint32_t sdl) {
+  constexpr int KT = kKeyTile<DP>;
+  using QT = Tile<DP, kQT>;
+  using KTl = Tile<DP, KT>;
+  using PT = Tile<64, KT>;
+  const uint32_t qs = stage + (COL0 / 64) * QT::kSlabBytes;
+  const uint32_t dos = qs + QT::kBytes;
+  const uint32_t ks = sk + R0 * KTl::kRowBytes + (COL0 / 64) * KTl::kSlabBytes;
+  const uint32_t pr = R0 * PT::kRowBytes;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kQT / 16; ++kk)
+    WgmmaSST<N, 0, 1>::run(acc_v, desc_kmajor<64, KT>(sp + pr, kk),
+                           desc_mnmajor<DP, kQT>(dos, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < kQT / 16; ++kk)
+    WgmmaSST<N, 0, 1>::run(acc_v, desc_kmajor<64, KT>(spl + pr, kk),
+                           desc_mnmajor<DP, kQT>(dos, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < kQT / 16; ++kk)
+    WgmmaSST<N, 0, 1>::run(acc_k, desc_kmajor<64, KT>(sdh + pr, kk),
+                           desc_mnmajor<DP, kQT>(qs, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < kQT / 16; ++kk)
+    WgmmaSST<N, 0, 1>::run(acc_k, desc_kmajor<64, KT>(sdl + pr, kk),
+                           desc_mnmajor<DP, kQT>(qs, kk), 1);
+  wgmma_commit();
+  // 64 keys: this consumer's (own keys) or the whole tile's (split columns)
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    WgmmaSST<N, 1, 1>::run(dq, desc_mnmajor<64, KT>(sdh + pr, kk),
+                           desc_mnmajor<DP, KT>(ks, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    WgmmaSST<N, 1, 1>::run(dq, desc_mnmajor<64, KT>(sdl + pr, kk),
+                           desc_mnmajor<DP, KT>(ks, kk), 1);
+  wgmma_commit();
+}
+
+// A consumer warpgroup's accumulator (64 x N, register 4j + 2r + e: row
+// 16 warp + lane / 4 + 8r, column 8j + 2 (lane % 4) + e) as float4 j of
+// thread t at (j * 128 + t) * 16 bytes: the dQ part's layout in a stage,
+// in the workspace, and of the dK/dV parts.
+template <int N>
+__device__ __forceinline__ void st_part(uint32_t dst, const float (&x)[N / 2]) {
+  const int t = threadIdx.x & 127;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     dst + (j * 128 + t) * 16),
+                 "f"(x[4 * j]), "f"(x[4 * j + 1]), "f"(x[4 * j + 2]),
+                 "f"(x[4 * j + 3])
+                 : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void add_part(uint32_t dst, const float (&x)[N / 2]) {
+  const int t = threadIdx.x & 127;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const uint32_t at = dst + (j * 128 + t) * 16;
+    float4 o;
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(o.x), "=f"(o.y), "=f"(o.z), "=f"(o.w)
+                 : "r"(at)
+                 : "memory");
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(at),
+                 "f"(o.x + x[4 * j]), "f"(o.y + x[4 * j + 1]),
+                 "f"(o.z + x[4 * j + 2]), "f"(o.w + x[4 * j + 3])
+                 : "memory");
+  }
+}
+
+// dK (scaled) and dV of rows k_row.., columns [COL0, COL0 + N) into the
+// gradients: directly when the key tile's heads are one block's, else
+// added in head-chunk order into the fp32 parts `ws` (this consumer's
+// region, dK's then dV's, KT x DP apart), the last chunk writing the
+// gradients; the order held by the int at `sem` (a time-out sets *fault).
+template <int DH, int N, int COL0>
+__device__ __forceinline__ void store_dkdv(const float (&acc_k)[N / 2],
+                                           const float (&acc_v)[N / 2],
+                                           const Walk& w, int k_row,
+                                           __nv_bfloat16* dk,
+                                           __nv_bfloat16* dv, Strides sdk,
+                                           Strides sdv, float* ws, int* sem,
+                                           int* fault, const BwdArgs& a) {
+  constexpr int DP = kPadded<DH>, KT = kKeyTile<DP>;
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int tc = threadIdx.x - 128;  // 0..255 over both consumers
+  const bool split = w.nchunks > 1, last = w.sp == w.nchunks - 1;
+  if (split) {
+    if (tc == 0 && w.sp > 0) wait_count<false>(sem, w.sp, fault);
+    named_sync(3, 256);
+  }
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    float4 xk = make_float4(acc_k[4 * j], acc_k[4 * j + 1], acc_k[4 * j + 2],
+                            acc_k[4 * j + 3]);
+    float4 xv = make_float4(acc_v[4 * j], acc_v[4 * j + 1], acc_v[4 * j + 2],
+                            acc_v[4 * j + 3]);
+    float4* pk = split ? reinterpret_cast<float4*>(ws) + j * 128 + t : nullptr;
+    float4* pv = split ? reinterpret_cast<float4*>(ws + KT * DP) + j * 128 + t
+                       : nullptr;
+    if (split && w.sp > 0) {
+      const float4 ok = __ldcg(pk), ov = __ldcg(pv);
+      xk = make_float4(ok.x + xk.x, ok.y + xk.y, ok.z + xk.z, ok.w + xk.w);
+      xv = make_float4(ov.x + xv.x, ov.y + xv.y, ov.z + xv.z, ov.w + xv.w);
+    }
+    if (!last) {
+      __stcg(pk, xk);
+      __stcg(pv, xv);
+      continue;
+    }
+    const int col = COL0 + 8 * j + 2 * (lane & 3);
+    if (col >= DH) continue;  // the padded columns are not stored
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kpos = k_row + 16 * warp + (lane >> 2) + 8 * r;
+      if (kpos >= a.Sk) continue;
+      const float k0 = r ? xk.z : xk.x, k1 = r ? xk.w : xk.y;
+      const float v0 = r ? xv.z : xv.x, v1 = r ? xv.w : xv.y;
+      *reinterpret_cast<uint32_t*>(dk + w.b * sdk.b + kpos * sdk.s +
+                                   w.g * sdk.h + col) =
+          pack_bf16(k0 * a.scale, k1 * a.scale);
+      *reinterpret_cast<uint32_t*>(dv + w.b * sdv.b + kpos * sdv.s +
+                                   w.g * sdv.h + col) = pack_bf16(v0, v1);
+    }
+  }
+  if (!last) {
+    __threadfence();
+    named_sync(3, 256);
+    if (tc == 0) count_in(sem);
+  }
+}
+
+struct Kernel {
+  const float* rows;
+  float* dq_acc;  // slabs x B x H x nq query tiles of 64 x DP
+  int* sems;      // dQ's: slabs x B x H x nq; dK/dV's: B x KV x nkt; fault
+  float* kv_acc;  // B x KV x nkt x 2 x KT x DP, where a group has 2+ heads
+  __nv_bfloat16 *dk, *dv;
+  Strides sdk, sdv;
+  int nq, nkt;
+};
+
+// Consumer C (0 or 1). Own keys (DP <= 128): rows 64C.. of the key tile,
+// all columns. Split columns: consumer 0 columns 0-127, consumer 1 columns
+// 128-DP and S^T, dP^T of the tile's 64 keys.
+template <int DH, int C>
+__device__ __forceinline__ void consumer(uint32_t base, const Bars& bar,
+                                         const Walk& w, const Kernel& p,
+                                         const BwdArgs& a,
+                                         const uint8_t* smem) {
+  constexpr int DP = kPadded<DH>, KT = kKeyTile<DP>, S = kRing<DP>;
+  constexpr bool kOwn = kOwnKeys<DP>;
+  constexpr int COL0 = kOwn || C == 0 ? 0 : 128;
+  constexpr int N = kOwn ? DP : (C == 0 ? 128 : DP - 128);
+  constexpr bool kSdp = kOwn || C == 1;
+  constexpr int R0 = kOwn ? 64 * C : 0;
+  using L = Smem<DP>;
+  const uint32_t sk = base + L::kK, sv = base + L::kV;
+  const uint32_t sp = base + L::kP, spl = base + L::kPl;
+  const uint32_t sdh = base + L::kDh, sdl = base + L::kDl;
+  const int key_row = w.k0 + R0;
+
+  float acc_k[N / 2], acc_v[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  float st[32], dpt[32];
+
+  if (w.n_iter > 0) mbar_wait(bar.kv(), 0);
+  for (int i = 0; i < w.n_iter; ++i) {
+    const int s = i % S, ph = (i / S) & 1;
+    const uint32_t stage = base + L::kRingOff + s * L::kStage;
+    const int q0 = w.m(i) * kQT;
+    float dq[N / 2];
+    if constexpr (kSdp) {
+      const uint32_t ksr = sk + R0 * Tile<DP, KT>::kRowBytes;
+      const uint32_t vsr = sv + R0 * Tile<DP, KT>::kRowBytes;
+      mbar_wait(bar.full(s), ph);
+      issue_sdp<DP>(st, dpt, ksr, vsr, stage);
+      wgmma_wait<0>();
+      if constexpr (!kOwn) {
+        // the other consumer's products of the last tile are done with
+        // the P and dS tiles
+        if (i > 0) mbar_wait(bar.freed(), (i - 1) & 1);
+      }
+      softmax_grad<R0>(st, dpt,
+                       reinterpret_cast<const float*>(smem + L::kRows +
+                                                      s * L::kRowBytes),
+                       q0, key_row, sp, spl, sdh, sdl, a);
+      if constexpr (!kOwn) mbar_arrive(bar.ready());
+      named_sync(1 + C, 128);
+      issue_products<DP, N, R0, COL0>(acc_v, acc_k, dq, stage, sk, sp, spl,
+                                      sdh, sdl);
+      wgmma_wait<1>();  // dV, dK done
+    } else {
+      mbar_wait(bar.full(s), ph);
+      mbar_wait(bar.ready(), i & 1);
+      issue_products<DP, N, R0, COL0>(acc_v, acc_k, dq, stage, sk, sp, spl,
+                                      sdh, sdl);
+      wgmma_wait<1>();
+    }
+    mbar_arrive(bar.stage_free(s));  // this consumer is done with Q, dO
+    wgmma_wait<0>();
+    if constexpr (!kSdp) mbar_arrive(bar.freed());
+    // the dQ part over the stage: own keys, consumer 0's then consumer 1's
+    // added to it; split columns, each its column region
+    const uint32_t region = stage + COL0 * kQT * 4;
+    if constexpr (kOwn && C == 1) {
+      mbar_wait(bar.dq_half(s), ph);
+      add_part<N>(region, dq);
+    } else {
+      mbar_wait(bar.stage_free(s), ph);
+      st_part<N>(region, dq);
+    }
+    if constexpr (kOwn && C == 0) {
+      mbar_arrive(bar.dq_half(s));
+    } else {
+      fence_async_smem();
+      mbar_arrive(bar.dq_full(s));
+    }
+  }
+
+  // the dK/dV parts of this (b, kv head, key tile): dK's then dV's, each
+  // consumer's region in them; and their semaphore, after the dQ ones,
+  // then the fault word
+  const size_t kv_tile = ((size_t)w.b * a.KV + w.g) * p.nkt + w.kt;
+  float* ws = p.kv_acc == nullptr
+                  ? nullptr
+                  : p.kv_acc + kv_tile * 2 * KT * DP +
+                        (kOwn ? C * 64 * DP : COL0 * 64);
+  int* kv_sems = p.sems + (size_t)a.slabs * gridDim.z * a.H * p.nq;
+  store_dkdv<DH, N, COL0>(acc_k, acc_v, w, key_row, p.dk, p.dv, p.sdk, p.sdv,
+                          ws, kv_sems + kv_tile,
+                          kv_sems + (size_t)gridDim.z * a.KV * p.nkt, a);
+}
+
 template <int DH>
-__global__ void __launch_bounds__(kWgThreads)
-flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap map_q,
-                  const __grid_constant__ CUtensorMap map_do,
-                  const __grid_constant__ CUtensorMap map_k,
-                  const __grid_constant__ CUtensorMap map_v,
-                  const float* __restrict__ lse, const float* __restrict__ D,
-                  __nv_bfloat16* __restrict__ dq, Strides sdq, BwdArgs a) {
-  constexpr int DP = kPadded<DH>;
-  using QT = Tile<DP, kQRows>;
-  using KT = Tile<DP, kKCols>;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_bf16(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_do,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v, Kernel p,
+               BwdArgs a) {
+  constexpr int DP = kPadded<DH>, KT = kKeyTile<DP>, S = kRing<DP>;
+  using L = Smem<DP>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const uint32_t sq = smem_addr(smem), sdo = sq + QT::kBytes;
-  const uint32_t sring = sdo + QT::kBytes;  // stage s: K at +2s tiles, V at +2s+1
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 2 * QT::kBytes +
-                                               2 * kStages * KT::kBytes);
-  const uint32_t bar_qd = smem_addr(bars);
-  const uint32_t bar_k = bar_qd + 8;  // stage s at + 8s
+  const uint32_t base = smem_addr(smem);
+  const Bars bar{base + (uint32_t)L::kBars, S};
+  const Walk w = make_walk<DP>(a);
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (a.H / a.KV);
-  const int q0 = qt * kQRows;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  int k_first, k_end;
-  key_range(q0, kQRows, kKCols, a, k_first, k_end);
-  const int n_tiles = k_end > k_first ? (k_end - k_first + kKCols - 1) / kKCols : 0;
-
-  auto load_kv = [&](int i) {
-    const uint32_t bar = bar_k + 8 * (i % kStages);
-    const uint32_t dst = sring + 2 * (i % kStages) * KT::kBytes;
-    mbar_expect_tx(bar, 2 * KT::kBytes);
-    load_tile<DP, kKCols>(dst, &map_k, bar, g, k_first + i * kKCols, b);
-    load_tile<DP, kKCols>(dst + KT::kBytes, &map_v, bar, g,
-                          k_first + i * kKCols, b);
-  };
-  if (tid == 0) {
-    mbar_init(bar_qd, 1);
-    for (int s = 0; s < kStages; ++s) mbar_init(bar_k + 8 * s, 1);
+  if (threadIdx.x == 0) {
+    mbar_init(bar.kv(), 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bar.full(s), 1);
+      mbar_init(bar.empty(s), 1);
+      mbar_init(bar.stage_free(s), 256);
+      mbar_init(bar.dq_half(s), 128);
+      mbar_init(bar.dq_full(s), kOwnKeys<DP> ? 128 : 256);
+    }
+    mbar_init(bar.ready(), 128);
+    mbar_init(bar.freed(), 128);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(bar_qd, 2 * QT::kBytes);
-    load_tile<DP, kQRows>(sq, &map_q, bar_qd, h, q0, b);
-    load_tile<DP, kQRows>(sdo, &map_do, bar_qd, h, q0, b);
-    for (int j = 0; j < kStages && j < n_tiles; ++j) load_kv(j);
   }
   __syncthreads();
 
-  const int row_a = warp * 16 + (lane >> 2);  // queries q0 + row_a, + 8
-  const int col_q = 2 * (lane & 3);
-  float lse2[2], dd[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qpos = q0 + row_a + 8 * r;
-    const size_t at = ((size_t)b * a.H + h) * a.Sq + qpos;
-    lse2[r] = qpos < a.Sq ? lse[at] * kLog2e : 0.f;
-    dd[r] = qpos < a.Sq ? D[at] : 0.f;
+  // the role, warp-uniform as the compiler sees it, so that each branch
+  // is compiled to its own register budget (setmaxnreg)
+  const int wg = __shfl_sync(kFull, (int)(threadIdx.x / 128), 0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+    if (lane == 0 && warp == 0 && w.n_iter > 0) {
+      // the producer: K and V once, then Q, dO and the rows per iteration
+      mbar_expect_tx(bar.kv(), 2 * L::KTile::kBytes);
+      load_tile<DP, KT>(base + L::kK, &map_k, bar.kv(), w.g, w.k0, w.b);
+      load_tile<DP, KT>(base + L::kV, &map_v, bar.kv(), w.g, w.k0, w.b);
+      for (int i = 0; i < w.n_iter; ++i) {
+        const int s = i % S, j = i / S;
+        if (j > 0) mbar_wait_or_trap(bar.empty(s), (j - 1) & 1);
+        const int h = w.h(i), q0 = w.m(i) * kQT;
+        const uint32_t stage = base + L::kRingOff + s * L::kStage;
+        mbar_expect_tx(bar.full(s), L::kStage + L::kRowBytes);
+        load_tile<DP, kQT>(stage, &map_q, bar.full(s), h, q0, w.b);
+        load_tile<DP, kQT>(stage + L::QTile::kBytes, &map_do, bar.full(s), h,
+                           q0, w.b);
+        bulk_load(base + L::kRows + s * L::kRowBytes,
+                  p.rows + ((size_t)(w.b * a.H + h) * p.nq * kQT + q0) * 2,
+                  L::kRowBytes, bar.full(s));
+      }
+    } else if (lane == 0 && warp == 1) {
+      // the dQ writer: each pair's part, in key-tile order per query tile.
+      // The stage is freed once the bulk add has read it; the add is
+      // counted in (the next key tile admitted) once it is done
+      for (int i = 0; i < w.n_iter; ++i) {
+        const int s = i % S;
+        mbar_wait_or_trap(bar.dq_full(s), (i / S) & 1);
+        const int m = w.m(i);
+        const size_t tile =
+            (((size_t)(w.kt % a.slabs) * gridDim.z + w.b) * a.H + w.h(i)) *
+                p.nq + m;
+        int* sem = p.sems + tile;
+        // the lower key tiles of this slab that add to m
+        int before = 0;
+        for (int n = w.kt - a.slabs, lo = first_key_tile(m, KT, a); n >= lo;
+             n -= a.slabs)
+          ++before;
+        if (before > 0) wait_count<true>(sem, before);
+        bulk_store(p.dq_acc + tile * kQT * DP,
+                   base + L::kRingOff + s * L::kStage, L::kStage, before > 0);
+        bulk_wait_read<0>();
+        mbar_arrive(bar.empty(s));
+        bulk_wait<0>();
+        count_in(sem);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    if (wg == 1)
+      consumer<DH, 0>(base, bar, w, p, a, smem);
+    else
+      consumer<DH, 1>(base, bar, w, p, a, smem);
   }
-  float acc[DP / 2];
-#pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
-  float s[16], dp[16];
-  uint32_t da[2][4];
+}
 
-  mbar_wait(bar_qd, 0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j % kStages;
-    const uint32_t ks = sring + 2 * stage * KT::kBytes, vs = ks + KT::kBytes;
-    const int kbase = k_first + j * kKCols;
-    mbar_wait(bar_k + 8 * stage, (j / kStages) & 1);
-    wgmma_fence();
-    issue_ss<DP>(s, sq, ks);    // S = Q K^T
-    issue_ss<DP>(dp, sdo, vs);  // dP = dO V^T
-    wgmma_commit();
-    wgmma_wait_all();
+// ------------------------------------------------ bf16 (c): dq
+// one block per (b, h, query tile): the slabs' tiles (the consumers'
+// layout, st_part) added in slab order, times the scale, in bf16; a slab
+// no key tile added to counts as zeros. Traps where (b) set its fault word
+template <int DH>
+__global__ void flash_bwd_dq_cast(const float* __restrict__ dq_acc,
+                                  const int* __restrict__ sems,
+                                  const int* __restrict__ fault,
+                                  __nv_bfloat16* __restrict__ dq, Strides sdq,
+                                  int H, int Sq, int nq, int slabs,
+                                  float scale) {
+  constexpr int DP = kPadded<DH>;
+  if (*fault) __trap();
+  constexpr int kRegion0 = kOwnKeys<DP> ? DP / 8 * 128 : 16 * 128;
+  const int tile = blockIdx.x, m = tile % nq, h = (tile / nq) % H,
+            b = tile / (nq * H);
+  const size_t per_slab = (size_t)gridDim.x;
+  for (int f = threadIdx.x; f < kQT * DP / 4; f += blockDim.x) {
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int g = 0; g < slabs; ++g) {
+      const size_t t = g * per_slab + tile;
+      if (sems[t] == 0) continue;
+      const float4 y =
+          __ldg(reinterpret_cast<const float4*>(dq_acc) + t * kQT * DP / 4 + f);
+      x = make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+    }
+    const int col0 = f < kRegion0 ? 0 : 128, g = f < kRegion0 ? f : f - kRegion0;
+    const int j = g / 128, t = g % 128, warp = t / 32, lane = t % 32;
+    const int col = col0 + 8 * j + 2 * (lane & 3);
+    if (col >= DH) continue;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int qpos = q0 + row_a + 8 * r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int idx = 4 * c + 2 * r + e, kpos = kbase + 8 * c + col_q + e;
-          float ds;
-          prob_and_ds(s[idx], dp[idx], lse2[r], dd[r],
-                      visible(qpos, kpos, a), a, ds);
-          dp[idx] = ds;
-        }
+      const int qpos = m * kQT + 16 * warp + (lane >> 2) + 8 * r;
+      if (qpos >= Sq) continue;
+      *reinterpret_cast<uint32_t*>(dq + b * sdq.b + qpos * sdq.s + h * sdq.h +
+                                   col) =
+          r ? pack_bf16(x.z * scale, x.w * scale)
+            : pack_bf16(x.x * scale, x.y * scale);
     }
-    // dQ += dS K, dS as two bf16 halves (as in (b))
-    pack_a(dp, da);
-    wgmma_fence();
-    issue_rs<DP, DP>(acc, da, ks);
-    wgmma_commit();
-    bf16_residual(dp);
-    wgmma_wait_all();
-    pack_a(dp, da);
-    wgmma_fence();
-    issue_rs<DP, DP>(acc, da, ks);
-    wgmma_commit();
-    wgmma_wait_all();
-    __syncthreads();  // every warp is done with this stage
-    if (tid == 0 && j + kStages < n_tiles) load_kv(j + kStages);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qpos = q0 + row_a + 8 * r;
-    if (qpos >= a.Sq) continue;
-    __nv_bfloat16* row = dq + b * sdq.b + qpos * sdq.s + h * sdq.h;
-#pragma unroll
-    for (int c = 0; c < DH / 8; ++c)  // the columns past DH are not stored
-      *reinterpret_cast<uint32_t*>(row + 8 * c + col_q) =
-          pack_bf16(acc[4 * c + 2 * r] * a.scale, acc[4 * c + 2 * r + 1] * a.scale);
   }
 }
 
@@ -536,9 +973,9 @@ __global__ void __launch_bounds__(kF32Threads)
 flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ D,
-                   float* __restrict__ dk, float* __restrict__ dv,
-                   float* __restrict__ part, Strides sq, Strides sk, Strides sv,
-                   Strides sd, Strides sdk, Strides sdv, int Dh, BwdArgs a) {
+                   float* __restrict__ dk, float* __restrict__ dv, Strides sq,
+                   Strides sk, Strides sv, Strides sd, Strides sdk, Strides sdv,
+                   int Dh, BwdArgs a) {
   constexpr int KR = kF32Rows<NT>, KB = kF32Warps * KR;
   extern __shared__ float fsm[];
   float* ks = fsm;               // [KB][Dh]
@@ -546,7 +983,7 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* qs = vs + KB * Dh;      // [32][Dh + 1]
   float* ds_ = qs + kF32Tile * (Dh + 1);  // dO, [32][Dh + 1]
   const int ld = Dh + 1;
-  const int g = blockIdx.y / a.split, sp = blockIdx.y % a.split;
+  const int g = blockIdx.y;
   const int b = blockIdx.z, k0 = blockIdx.x * KB;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = warp * KR;
@@ -556,9 +993,9 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     ks[i] = kpos < a.Sk ? k[b * sk.b + kpos * sk.s + g * sk.h + d] : 0.f;
     vs[i] = kpos < a.Sk ? v[b * sv.b + kpos * sv.s + g * sv.h + d] : 0.f;
   }
-  int q_first, q_end, h_first, h_end;
+  int q_first, q_end;
   query_range(k0, KB, kF32Tile, a, q_first, q_end);
-  head_chunk(g, sp, a, h_first, h_end);
+  const int h_first = g * (a.H / a.KV), h_end = h_first + a.H / a.KV;
 
   float acc_k[KR][NT], acc_v[KR][NT];
 #pragma unroll
@@ -628,9 +1065,10 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
       const int d = lane + 32 * t;
-      if (d < Dh)
-        store_kv(dk, dv, part, sdk, sdv, b, kpos, g, d, Dh, sp,
-                 acc_k[j][t] * a.scale, acc_v[j][t], a);
+      if (d < Dh) {
+        dk[b * sdk.b + kpos * sdk.s + g * sdk.h + d] = acc_k[j][t] * a.scale;
+        dv[b * sdv.b + kpos * sdv.s + g * sdv.h + d] = acc_v[j][t];
+      }
     }
   }
 }
@@ -735,60 +1173,19 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------ (b)'s partial sums
-// dK, dV = the split blocks' fp32 partial sums added in order
-template <typename T>
-__global__ void flash_bwd_sum_parts(const float* __restrict__ part,
-                                    T* __restrict__ dk, T* __restrict__ dv,
-                                    Strides sdk, Strides sdv, int B, int Dh,
-                                    BwdArgs a) {
-  const size_t n = (size_t)B * a.Sk * a.KV * Dh;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int d = i % Dh, g = (i / Dh) % a.KV;
-  const int s = (i / ((size_t)Dh * a.KV)) % a.Sk;
-  const int b = i / ((size_t)Dh * a.KV * a.Sk);
-  float kx = 0.f, vx = 0.f;
-  for (int sp = 0; sp < a.split; ++sp) {
-    kx += part[sp * n + i];
-    vx += part[(a.split + sp) * n + i];
-  }
-  dk[b * sdk.b + s * sdk.s + g * sdk.h + d] = from_float<T>(kx);
-  dv[b * sdv.b + s * sdv.s + g * sdv.h + d] = from_float<T>(vx);
-}
-
 // ------------------------------------------------ launches
 struct Ptrs {
   const void *q, *k, *v, *o, *dout;
   const float* lse;
   void *dq, *dk, *dv;
-  float *D, *part;
+  float *rows, *dq_acc;
+  int* sems;
+  float* kv_acc;
 };
 
 struct AllStrides {
   Strides q, k, v, o, dout, dq, dk, dv;
 };
-
-template <typename T>
-cudaError_t launch_sum_parts(const Ptrs& p, const AllStrides& s, int B,
-                             int Dh, const BwdArgs& a, cudaStream_t st) {
-  if (a.split == 1) return cudaSuccess;
-  const size_t n = (size_t)B * a.Sk * a.KV * Dh;
-  flash_bwd_sum_parts<T><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      p.part, static_cast<T*>(p.dk), static_cast<T*>(p.dv), s.dk, s.dv, B,
-      Dh, a);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dot(const Ptrs& p, const AllStrides& s, int B, int Dh,
-                       const BwdArgs& a, cudaStream_t st) {
-  const int rows = B * a.Sq * a.H;
-  flash_bwd_dot<T><<<(rows + 7) / 8, 256, 0, st>>>(
-      static_cast<const T*>(p.o), static_cast<const T*>(p.dout), s.o, s.dout,
-      p.D, a.H, a.Sq, Dh, rows);
-  return cudaGetLastError();
-}
 
 template <int NT>
 cudaError_t launch_f32(const Ptrs& p, const AllStrides& s, int B, int Dh,
@@ -806,17 +1203,22 @@ cudaError_t launch_f32(const Ptrs& p, const AllStrides& s, int B, int Dh,
   const auto* k = static_cast<const float*>(p.k);
   const auto* v = static_cast<const float*>(p.v);
   const auto* g = static_cast<const float*>(p.dout);
-  flash_bwd_dkdv_f32<NT><<<dim3((a.Sk + rows - 1) / rows, a.KV * a.split, B),
-                           kF32Threads, smem, st>>>(
-      q, k, v, g, p.lse, p.D, static_cast<float*>(p.dk), static_cast<float*>(p.dv),
-      p.part, s.q, s.k, s.v, s.dout, s.dk, s.dv, Dh, a);
+  const int n_rows = B * a.Sq * a.H;
+  flash_bwd_dot<<<(n_rows + 7) / 8, 256, 0, st>>>(
+      static_cast<const float*>(p.o), g, s.o, s.dout, p.rows, a.H, a.Sq, Dh,
+      n_rows);
   err = cudaGetLastError();
-  if (err == cudaSuccess) err = launch_sum_parts<float>(p, s, B, Dh, a, st);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_f32<NT><<<dim3((a.Sk + rows - 1) / rows, a.KV, B),
+                           kF32Threads, smem, st>>>(
+      q, k, v, g, p.lse, p.rows, static_cast<float*>(p.dk),
+      static_cast<float*>(p.dv), s.q, s.k, s.v, s.dout, s.dk, s.dv, Dh, a);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dq_f32<NT><<<dim3((a.Sq + rows - 1) / rows, a.H, B), kF32Threads,
                          smem, st>>>(
-      q, k, v, g, p.lse, p.D, static_cast<float*>(p.dq), s.q, s.k, s.v, s.dout,
-      s.dq, Dh, a);
+      q, k, v, g, p.lse, p.rows, static_cast<float*>(p.dq), s.q, s.k, s.v,
+      s.dout, s.dq, Dh, a);
   return cudaGetLastError();
 }
 
@@ -828,43 +1230,79 @@ cudaError_t dispatch_f32(const Ptrs& p, const AllStrides& s, int B, int Dh,
   return launch_f32<8>(p, s, B, Dh, a, st);
 }
 
+// The (key tile, query tile) pairs a block aims at: every key tile's heads
+// in one block, unless that grid leaves a tenth or more of the `sms` SMs
+// idle (one block an SM: the shared memory allows no second); then the
+// smallest target whose grid fits them, the heaviest key tiles split the
+// most.
+int choose_target(int B, int nkt, int KT, BwdArgs a, int sms) {
+  const int R = a.H / a.KV;
+  int longest = 1;
+  for (int n = 0; n < nkt; ++n) {
+    const int len = plan_key_tile(n, KT, R, a).len;
+    longest = len > longest ? len : longest;
+  }
+  if (10 * B * a.KV * nkt >= 9 * sms) return R * longest;
+  for (int t = longest; t < R * longest; ++t) {
+    a.target = t;
+    long long blocks = 0;
+    for (int n = 0; n < nkt; ++n) blocks += plan_key_tile(n, KT, R, a).chunks;
+    if ((long long)B * a.KV * blocks <= sms) return t;
+  }
+  return R * longest;
+}
+
 template <int DH>
 cudaError_t launch_bf16(const Ptrs& p, const AllStrides& s, int B,
-                        const BwdArgs& a, cudaStream_t st) {
-  constexpr int DP = kPadded<DH>;
-  constexpr int kParts = DP / kPart<DP>;
-  CUtensorMap q32, do32, k64, v64, q64, do64, k32, v32;
-  if (!make_map<DH, kQCols>(&q32, p.q, a.H, a.Sq, B, s.q) ||
-      !make_map<DH, kQCols>(&do32, p.dout, a.H, a.Sq, B, s.dout) ||
-      !make_map<DH, kKeyRows>(&k64, p.k, a.KV, a.Sk, B, s.k) ||
-      !make_map<DH, kKeyRows>(&v64, p.v, a.KV, a.Sk, B, s.v) ||
-      !make_map<DH, kQRows>(&q64, p.q, a.H, a.Sq, B, s.q) ||
-      !make_map<DH, kQRows>(&do64, p.dout, a.H, a.Sq, B, s.dout) ||
-      !make_map<DH, kKCols>(&k32, p.k, a.KV, a.Sk, B, s.k) ||
-      !make_map<DH, kKCols>(&v32, p.v, a.KV, a.Sk, B, s.v))
+                        BwdArgs a, cudaStream_t st) {
+  constexpr int DP = kPadded<DH>, KT = kKeyTile<DP>;
+  const int nq = (a.Sq + kQT - 1) / kQT, nkt = (a.Sk + KT - 1) / KT;
+  CUtensorMap mq, mdo, mk, mv;
+  if (!make_map<DH, kQT>(&mq, p.q, a.H, a.Sq, B, s.q) ||
+      !make_map<DH, kQT>(&mdo, p.dout, a.H, a.Sq, B, s.dout) ||
+      !make_map<DH, KT>(&mk, p.k, a.KV, a.Sk, B, s.k) ||
+      !make_map<DH, KT>(&mv, p.v, a.KV, a.Sk, B, s.v))
     return cudaErrorInvalidValue;
-  const size_t smem_kv = 2 * Tile<DP, kKeyRows>::kBytes +
-                         2 * kStages * Tile<DP, kQCols>::kBytes + 1024 + 64;
-  const size_t smem_q = 2 * Tile<DP, kQRows>::kBytes +
-                        2 * kStages * Tile<DP, kKCols>::kBytes + 1024 + 64;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  const int n_rows = B * a.H * nq * kQT;
+  flash_bwd_rows<<<(n_rows + 7) / 8, 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(p.o),
+      static_cast<const __nv_bfloat16*>(p.dout), p.lse, s.o, s.dout, p.rows,
+      a.H, a.Sq, nq * kQT, DH, n_rows);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_bf16<DH>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  // the grid: each key tile's head chunks, in key-tile order; the dK/dV
+  // parts' scratch needed where some key tile splits its heads
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  a.target = choose_target(B, nkt, KT, a, sms);
+  int blocks = 0;
+  bool split = false;
+  for (int n = 0; n < nkt; ++n) {
+    const KeyTilePlan t = plan_key_tile(n, KT, a.H / a.KV, a);
+    blocks += t.chunks;
+    split = split || t.chunks > 1;
+  }
+  if ((split && p.kv_acc == nullptr) || blocks > 65535)
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = Smem<DP>::kAlloc;
+  err = cudaFuncSetAttribute(flash_bwd_bf16<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_bf16<DH><<<dim3((a.Sk + kKeyRows - 1) / kKeyRows * kParts,
-                                 a.KV * a.split, B),
-                            kWgThreads, smem_kv, st>>>(
-      q32, k64, v64, do32, p.lse, p.D, static_cast<__nv_bfloat16*>(p.dk),
-      static_cast<__nv_bfloat16*>(p.dv), p.part, s.dk, s.dv, a);
+  const Kernel k{p.rows, p.dq_acc, p.sems, p.kv_acc,
+                 static_cast<__nv_bfloat16*>(p.dk),
+                 static_cast<__nv_bfloat16*>(p.dv), s.dk, s.dv, nq, nkt};
+  flash_bwd_bf16<DH><<<dim3(blocks, a.KV, B), kThreads, smem, st>>>(
+      mq, mdo, mk, mv, k, a);
   err = cudaGetLastError();
-  if (err == cudaSuccess)
-    err = launch_sum_parts<__nv_bfloat16>(p, s, B, DH, a, st);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_bf16<DH><<<dim3((a.Sq + kQRows - 1) / kQRows, a.H, B), kWgThreads,
-                          smem_q, st>>>(q64, do64, k32, v32, p.lse, p.D,
-                                        static_cast<__nv_bfloat16*>(p.dq), s.dq, a);
+  const int* fault =
+      p.sems + (size_t)a.slabs * B * a.H * nq + (size_t)B * a.KV * nkt;
+  flash_bwd_dq_cast<DH><<<B * a.H * nq, 256, 0, st>>>(
+      p.dq_acc, p.sems, fault, static_cast<__nv_bfloat16*>(p.dq), s.dq, a.H,
+      a.Sq, nq, a.slabs, a.scale);
   return cudaGetLastError();
 }
 
@@ -882,46 +1320,75 @@ cudaError_t dispatch_bf16(const Ptrs& p, const AllStrides& s, int B, int Dh,
   }
 }
 
+int key_tile_of(int dh) {
+  switch (dh) {
+    case 16: return kKeyTile<kPadded<16>>;
+    case 32: return kKeyTile<kPadded<32>>;
+    case 64: return kKeyTile<kPadded<64>>;
+    case 120: return kKeyTile<kPadded<120>>;
+    case 128: return kKeyTile<kPadded<128>>;
+    case 160: return kKeyTile<kPadded<160>>;
+    case 256: return kKeyTile<kPadded<256>>;
+    default: return 0;
+  }
+}
+
 }  // namespace
+
+// The bf16 kernel's tiling for head dim dh: keys a block, queries a tile,
+// the padded width; returns 0, or cudaErrorInvalidValue for a head dim it
+// does not take. The binding sizes its scratch from these.
+extern "C" int repro_flash_bwd_tiles(int dh, int* key_tile, int* query_tile,
+                                     int* width) {
+  const int kt = key_tile_of(dh);
+  if (kt == 0) return (int)cudaErrorInvalidValue;
+  *key_tile = kt;
+  *query_tile = kQT;
+  *width = dh < 64 ? dh : (dh + 63) / 64 * 64;
+  return 0;
+}
 
 // q, o, dout, dq: (B, Sq, H, Dh); k, v, dk, dv: (B, Sk, KV, Dh); `strides`
 // holds (b, s, h) in elements for q, k, v, o, dout, dq, dk, dv in that order,
-// the head dimension contiguous; lse and D (scratch the kernel fills): fp32
-// (B, H, Sq) contiguous. dtype: 0 = float32 (Dh <= 256), 1 = bfloat16 (Dh in
-// {16, 32, 64, 120, 128, 160, 256}; every bf16 operand 16-byte aligned, as
-// TMA needs). kv_len < 0 means "no kv_len mask". split: how many blocks of
-// (b) share one kv head's query heads (1 <= split <= H / KV); above 1, part
-// is fp32 scratch of 2 x split x B x Sk x KV x Dh for their partial sums
-// (else NULL). Launches (a), (b), the sum of (b)'s parts when split > 1,
-// then (c), on `stream`. Returns a cudaError_t (0 on success); the caller
+// the head dimension contiguous; lse fp32 (B, H, Sq) contiguous. dtype: 0 =
+// float32 (Dh <= 256; rows = D, fp32 (B, H, Sq) scratch; dq_acc, sems,
+// kv_acc NULL; slabs unused), 1 = bfloat16 (Dh in {16, 32, 64, 120, 128,
+// 160, 256}; every bf16 operand 16-byte aligned, as TMA needs; with nq =
+// ceil(Sq / 64) and nkt = ceil(Sk / key tile) from repro_flash_bwd_tiles:
+// rows fp32 (B, H, nq * 64, 2), dq_acc fp32 (slabs, B, H, nq, 64 * width),
+// sems int32 of slabs * B * H * nq + B * KV * nkt + 1 zeros, kv_acc fp32
+// (B, KV, nkt, 2, key tile * width) where H > KV, else NULL: the schedule
+// may then split a key tile's heads over blocks). kv_len < 0 means "no
+// kv_len mask".
+// Launches on `stream`; returns a cudaError_t (0 on success), the caller
 // raises on anything else.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* dq, void* dk, void* dv, void* D,
-    void* part, const long long* strides, int B, int H, int KV, int Sq, int Sk,
-    int Dh, int causal, int window, float cap, float scale, int kv_len,
-    int split, int dtype, void* stream) {
+    const void* dout, const void* lse, void* dq, void* dk, void* dv,
+    void* rows, void* dq_acc, void* sems, void* kv_acc,
+    const long long* strides, int B, int H, int KV, int Sq, int Sk, int Dh,
+    int causal, int window, float cap, float scale, int kv_len, int slabs,
+    int dtype, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
-      Dh <= 0 || Dh > 256 || B > 65535 || H > 65535 || split < 1 || split > H / KV ||
-      KV * split > 65535 || (split > 1) != (part != nullptr))
+      Dh <= 0 || Dh > 256 || B > 65535 || KV > 65535 || slabs < 1 ||
+      rows == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0 &&
+      (dq_acc != nullptr || sems != nullptr || kv_acc != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && (dq_acc == nullptr || sems == nullptr))
     return (int)cudaErrorInvalidValue;
   AllStrides s;
   Strides* all[8] = {&s.q, &s.k, &s.v, &s.o, &s.dout, &s.dq, &s.dk, &s.dv};
   for (int i = 0; i < 8; ++i)
     *all[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const Ptrs p{q, k, v, o, dout, static_cast<const float*>(lse), dq, dk, dv,
-               static_cast<float*>(D), static_cast<float*>(part)};
-  const BwdArgs a{H, KV, Sq, Sk, causal, window, kv_len, cap, scale, split};
+               static_cast<float*>(rows), static_cast<float*>(dq_acc),
+               static_cast<int*>(sems), static_cast<float*>(kv_acc)};
+  const BwdArgs a{H, KV, Sq, Sk, causal, window, kv_len, cap, scale, 0, slabs};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch_dot<float>(p, s, B, Dh, a, st);
-    return (int)(err != cudaSuccess ? err : dispatch_f32(p, s, B, Dh, a, st));
-  }
-  if (dtype == 1) {
-    err = launch_dot<__nv_bfloat16>(p, s, B, Dh, a, st);
-    return (int)(err != cudaSuccess ? err : dispatch_bf16(p, s, B, Dh, a, st));
-  }
+  if (dtype == 0) return (int)dispatch_f32(p, s, B, Dh, a, st);
+  if (dtype == 1) return (int)dispatch_bf16(p, s, B, Dh, a, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,8 +14,12 @@ the launch is refused. It takes CUDA tensors only: the CPU goes through
 checked the same way and gets its output allocated, with no launch.
 
 The backward, ``flash_attention_bwd``, is a second library from
-``csrc/flash_attention_bwd.cu`` (the row dot, dK/dV and dQ kernels of
-the FA2 split, from the forward's ``lse``), bound the same way.
+``csrc/flash_attention_bwd.cu``, bound the same way: in bf16 one
+warp-specialised kernel computes dK, dV and dQ from the forward's
+``lse`` (S and dP once per tile pair), between a pass that writes each
+row's (lse, D) and one that casts dQ's fp32 workspace; in fp32 the
+CUDA-core kernels of FA2's split. The wrapper allocates their scratch
+(``bwd_scratch``).
 
 ``launches`` and ``bwd_launches`` count the forward's and the backward's
 launches in this process; callers that want to show a path went through
@@ -58,15 +62,27 @@ def library() -> ctypes.CDLL:
 def bwd_library() -> ctypes.CDLL:
     lib = kernels.load("flash_attention_bwd", BWD_SOURCE)
     fn = lib.repro_flash_attention_bwd
-    # (q, k, v, o, dout, lse, dq, dk, dv, D, part or NULL, strides[24], B,
-    #  H, KV, Sq, Sk, Dh, causal, window, cap, scale, kv_len, split, dtype,
+    # (q, k, v, o, dout, lse, dq, dk, dv, rows, dq_acc, sems, kv_acc (the
+    #  last three NULL in fp32, kv_acc also where H == KV), strides[24], B,
+    #  H, KV, Sq, Sk, Dh, causal, window, cap, scale, kv_len, slabs, dtype,
     #  stream)
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.repro_flash_bwd_tiles.argtypes = [ctypes.c_int] + [
+        ctypes.POINTER(ctypes.c_int)] * 3
+    lib.repro_flash_bwd_tiles.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    for Dh in BF16_HEAD_DIMS:
+        got = [ctypes.c_int() for _ in range(3)]
+        err = lib.repro_flash_bwd_tiles(Dh, *got)
+        if err or tuple(x.value for x in got) != bwd_tiles(Dh):
+            raise RuntimeError(
+                f"flash_attention backward library tiles Dh {Dh} as "
+                f"{tuple(x.value for x in got)} (code {err}); the binding "
+                f"sizes its scratch for {bwd_tiles(Dh)}")
     return lib
 
 
@@ -142,7 +158,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     cotangent ``do``, from the forward's output ``o`` and ``lse``: q, o, do
     (B, Sq, H, Dh), k, v (B, Sk, KV, Dh) as the forward takes them (o and
     do strided as q may be), lse fp32 (B, H, Sq) contiguous. Returns
-    contiguous gradients in the inputs' dtype. Deterministic: no atomics."""
+    contiguous gradients in the inputs' dtype. Deterministic: no
+    floating-point atomics, every sum in one fixed order."""
     _check(q, k, v, ("o", o), ("do", do))
     B, Sq, H, Dh = q.shape
     Sk = k.shape[1]
@@ -153,12 +170,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          f"{lse.dtype} {tuple(lse.shape)}")
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
                   for t in (q, k, v))
-    D = torch.empty_like(lse)
-    split = dkdv_split(B, Sk, H, k.shape[2], Dh, q.dtype)
-    part = (torch.empty((2, split) + tuple(k.shape), dtype=torch.float32,
-                        device=q.device) if split > 1 else None)
+    slabs = bwd_slabs(Sk, Dh, causal, window)
+    scratch = bwd_scratch(q, k, slabs)
     if not kernels.is_fake(q):
-        _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, D, part, split, causal,
+        _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, scratch, slabs, causal,
                     window, cap, kv_len)
     # S = q k^T again, dP = do v^T, dV, dQ, dK over the full tile grid
     kernels.notify("flash_attention_bwd", (q, k, v, o, lse, do),
@@ -167,31 +182,61 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     return dq, dk, dv
 
 
-# the dK/dV kernel's keys a block (64, and 32 for fp32 at Dh > 128) and
-# column parts (bf16 padded widths 192 and 256: 3 and 2), and the grid it
-# should reach: two blocks on each of the H100's 132 SMs
-DKDV_TARGET_BLOCKS = 2 * 132
+def bwd_tiles(Dh: int) -> tuple:
+    """The bf16 backward kernel's tiling for head dim ``Dh``
+    (csrc/flash_attention_bwd.cu; ``bwd_library`` checks it against
+    ``repro_flash_bwd_tiles``): (keys a block, queries a tile, the padded
+    width). Up to width 128 a block takes 128 keys, 64 to each of its two
+    consumers; at 192 and 256 it takes 64, its consumers splitting the
+    columns."""
+    width = Dh if Dh < 64 else -(-Dh // 64) * 64
+    return (128 if width <= 128 else 64), 64, width
 
 
-def dkdv_split(B: int, Sk: int, H: int, KV: int, Dh: int, dtype) -> int:
-    """How many blocks of the dK/dV kernel share one kv head's H / KV query
-    heads: 1 when the grid is full already (each block then sums its whole
-    group), else enough to reach ``DKDV_TARGET_BLOCKS`` (StarCoder2-3B's
-    2 kv heads at B 4, S 512: 64 blocks alone); the blocks' partial sums
-    are added in order. Whole heads per block, none empty."""
-    R = H // KV
-    rows, parts = 64, 1
-    if dtype == torch.bfloat16:
-        width = Dh if Dh < 64 else -(-Dh // 64) * 64
-        parts = {192: 3, 256: 2}.get(width, 1)
-    elif Dh > 128:
-        rows = 32
-    blocks = -(-Sk // rows) * parts * KV * B
-    split = min(R, -(-DKDV_TARGET_BLOCKS // blocks))
-    return -(-R // -(-R // split))
+# non-causal shapes: key tiles a dQ slab orders (its chain of ordered adds)
+SLAB_KEY_TILES = 4
 
 
-def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, D, part, split, causal,
+def bwd_slabs(Sk: int, Dh: int, causal: bool, window: int) -> int:
+    """The dQ workspaces the bf16 kernel's key tiles add into (key tile n
+    into slab n mod slabs, in key-tile order; the cast pass adds the slabs
+    in order). Non-causal shapes without a window spread their key tiles
+    over slabs of ``SLAB_KEY_TILES``: every key tile there reaches each
+    query tile, and one slab would chain all their adds. The rest of the
+    schedule (how a key tile's heads split over blocks) is the kernel's
+    own (``choose_target`` in csrc/flash_attention_bwd.cu)."""
+    nkt = -(-Sk // bwd_tiles(Dh)[0])
+    return 1 if causal or window > 0 else -(-nkt // SLAB_KEY_TILES)
+
+
+def bwd_scratch(q, k, slabs: int) -> dict:
+    """The backward kernels' scratch on q's device (its current stream).
+    bf16, with nq query tiles and nkt key tiles (``bwd_tiles``) and
+    ``slabs`` dQ workspaces (``bwd_slabs``): ``rows`` fp32 (B, H, nq * 64,
+    2), each row's (lse log2(e), D); ``dq_acc`` fp32 (slabs, B, H, nq, 64 *
+    width), dQ's sums in the kernel's layout; ``sems`` int32 zeros, one per
+    (slab, b, h, query tile), then one per (b, kv head, key tile), the
+    order of the adds, then the kernel's fault word; ``kv_acc`` fp32 (B,
+    KV, nkt, 2, key tile * width), the head chunks' dK, dV sums, wherever a
+    group has more than one head (the kernel may split it over blocks).
+    fp32: ``rows`` is D, fp32 (B, H, Sq), and the rest None."""
+    B, Sq, H, Dh = q.shape
+    KV = k.shape[2]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if q.dtype != torch.bfloat16:
+        return {"rows": torch.empty((B, H, Sq), **f32), "dq_acc": None,
+                "sems": None, "kv_acc": None}
+    key_tile, q_tile, width = bwd_tiles(Dh)
+    nq, nkt = -(-Sq // q_tile), -(-k.shape[1] // key_tile)
+    return {"rows": torch.empty((B, H, nq * q_tile, 2), **f32),
+            "dq_acc": torch.empty((slabs, B, H, nq, q_tile * width), **f32),
+            "sems": torch.zeros(slabs * B * H * nq + B * KV * nkt + 1,
+                                dtype=torch.int32, device=q.device),
+            "kv_acc": (torch.empty((B, KV, nkt, 2, key_tile * width), **f32)
+                       if H > KV else None)}
+
+
+def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, scratch, slabs, causal,
                 window, cap, kv_len) -> None:
     global bwd_launches
     B, Sq, H, Dh = q.shape
@@ -202,11 +247,12 @@ def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, D, part, split, causal,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention_bwd(
-            *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, D)),
-            None if part is None else part.data_ptr(),
+            *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv)),
+            *(None if scratch[n] is None else scratch[n].data_ptr()
+              for n in ("rows", "dq_acc", "sems", "kv_acc")),
             ctypes.cast(strides, ctypes.c_void_p), B, H, KV, Sq, Sk, Dh,
             int(causal), int(window), float(cap), float(Dh ** -0.5),
-            -1 if kv_len is None else int(kv_len), split, _DTYPES[q.dtype],
+            -1 if kv_len is None else int(kv_len), slabs, _DTYPES[q.dtype],
             stream)
     kernels.raise_on_error(lib, err, "flash_attention backward kernel")
     bwd_launches += 1

@@ -7,11 +7,15 @@ masking, in the reference's layout: q (B, H, Sq, Dh); k, v
 the kernels' own (model) layout, the forward with its row log-sum-exp
 (``flash_attention_fwd_ref``) and the backward kernel's plain version
 (``flash_attention_bwd_ref``), which the binding's stand-ins in the CPU
-tests and the dry run's FLOP count use.
+tests and the dry run's FLOP count use; and the same gradients summed in
+the bf16 kernel's order (``flash_attention_bwd_fused_ref``), from its
+tiling (``kernel.bwd_tiles``).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.flash_attention.kernel import bwd_tiles
 
 NEG_INF = -1e30
 
@@ -134,3 +138,71 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     dv = dv.view(B, KV, R, Sk, Dh).sum(2)
     return tuple(g.transpose(1, 2).to(t.dtype).contiguous()
                  for g, t in ((dq, q), (dk, k), (dv, v)))
+
+
+def flash_attention_bwd_fused_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                                  window: int = 0, cap: float = 0.0,
+                                  kv_len=None, per=None, slabs: int = 1):
+    """``flash_attention_bwd_ref``'s gradients with every partial sum added
+    in the bf16 kernel's fixed order, in fp32. Per key tile (``bwd_tiles``)
+    and query tile, the last query tile first and the heads inside: dV +=
+    P^T do and dK += dS^T q into the sum of the block that holds the head
+    (blocks of ``per`` whole heads: one number for every key tile, or one
+    a key tile; None: the whole group, one block a key tile; the kernel
+    picks its own split by the card's SMs); a dQ part dS k, the sum of its
+    64-key parts in key order, added to the query tile's running sum in
+    slab n mod ``slabs`` in key-tile order. A key tile's block sums are
+    then added in block order, the slabs in slab order; dQ and dK scaled
+    by Dh^-0.5 at the end."""
+    B, Sq, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    R = H // KV
+    key_tile, q_tile, _ = bwd_tiles(Dh)
+    scale = Dh ** -0.5
+    qt, kt, vt = _heads_first(q, k, v)
+    gt = do.transpose(1, 2).float()
+    D = (gt * o.transpose(1, 2).float()).sum(-1)
+    dq = torch.zeros((slabs,) + qt.shape, dtype=torch.float32,
+                     device=q.device)
+    dk = torch.zeros((B, KV, Sk, Dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for n, k0 in enumerate(range(0, Sk, key_tile)):
+        ks = slice(k0, min(k0 + key_tile, Sk))
+        nk = ks.stop - k0
+        heads = (R if per is None else per if isinstance(per, int)
+                 else per[n])
+        chunks = -(-R // heads)
+        sum_k = torch.zeros((chunks, B, KV, nk, Dh), dtype=torch.float32,
+                            device=q.device)
+        sum_v = torch.zeros_like(sum_k)
+        for q0 in reversed(range(0, Sq, q_tile)):
+            qs = slice(q0, min(q0 + q_tile, Sq))
+            s, capd = _scores(qt[:, :, qs], kt[:, :, ks], cap)
+            ok = _visible(Sq, Sk, q0, s.shape[2], k0, nk, causal, window,
+                          kv_len, q.device)
+            p = torch.where(ok, torch.exp(s - lse[:, :, qs, None]), 0.0)
+            dp = torch.einsum("bhqd,bhkd->bhqk", gt[:, :, qs], vt[:, :, ks])
+            ds = torch.where(ok, p * (dp - D[:, :, qs, None]) * capd, 0.0)
+            part = None
+            for u0 in range(0, nk, 64):
+                us = slice(u0, min(u0 + 64, nk))
+                pu = torch.einsum("bhqk,bhkd->bhqd", ds[..., us],
+                                  kt[:, :, ks][:, :, us])
+                part = pu if part is None else part + pu
+            dq[n % slabs, :, :, qs] += part
+            cv = torch.einsum("bhqk,bhqd->bhkd", p, gt[:, :, qs])
+            ck = torch.einsum("bhqk,bhqd->bhkd", ds, qt[:, :, qs])
+            cv, ck = (c.view(B, KV, R, nk, Dh) for c in (cv, ck))
+            for r in range(R):
+                sum_v[r // heads] += cv[:, :, r]
+                sum_k[r // heads] += ck[:, :, r]
+        acc_k, acc_v = sum_k[0], sum_v[0]
+        for c in range(1, chunks):
+            acc_k, acc_v = acc_k + sum_k[c], acc_v + sum_v[c]
+        dk[:, :, ks] = acc_k * scale
+        dv[:, :, ks] = acc_v
+    acc_q = dq[0]
+    for g in range(1, slabs):
+        acc_q = acc_q + dq[g]
+    return tuple(g.transpose(1, 2).to(t.dtype).contiguous()
+                 for g, t in ((acc_q * scale, q), (dk, k), (dv, v)))

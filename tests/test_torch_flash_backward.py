@@ -12,7 +12,12 @@ the reference's ``flash_attention_ref`` with ``kv_len``. The plain
 forward's lse against the logsumexp of the reference's masked scores.
 ``FlashAttention`` through its CUDA branch with both bindings stood in by
 their plain versions; the bindings' fake route. Inputs from numpy seeds,
-fp32, at ``tests/test_kernels.py``'s 1e-4.
+fp32, at ``tests/test_kernels.py``'s 1e-4. The bf16 kernel's order of
+adds (``flash_attention_bwd_fused_ref``: dQ's parts in key-tile order in
+their slabs, the slabs in order, a key tile's head chunks' dK, dV sums in
+chunk order) against ``jax.grad`` at 1e-5, over two and three key tiles;
+the binding's dQ slabs and scratch at the training shapes, and one launch
+a call through a stand-in library.
 """
 import numpy as np
 import pytest
@@ -27,7 +32,8 @@ from repro.kernels.flash_attention.ref import \
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    NEG_INF, flash_attention_bwd_ref, flash_attention_fwd_ref)
+    NEG_INF, flash_attention_bwd_fused_ref, flash_attention_bwd_ref,
+    flash_attention_fwd_ref)
 
 TOL = 1e-4
 
@@ -206,3 +212,181 @@ def test_backward_binding_refuses_cpu_tensors():
     q, k, v, _ = (torch.from_numpy(x) for x in _inputs(8, 1, 8, 8, 2, 1, 8))
     with pytest.raises(ValueError, match="CUDA"):
         kernel.flash_attention_bwd(q, k, v, q, torch.zeros(1, 2, 8), q)
+
+
+# (B, Sq, Sk, H, KV, Dh, causal, window, cap, kv_len, per, slabs): the
+# fused order over two or three key tiles and three query tiles, against
+# the reference's grad: GQA and MQA with the heads split over more blocks
+# in the first key tile than the last (``per``: heads a block, a key tile
+# each), a window, soft-cap 50, kv_len, Sq != Sk, a ragged Sq, Dh 120,
+# 160 and 256 (64-key tiles at the padded widths 192 and 256), and dQ
+# over two and three slabs
+FUSED_CASES = [
+    (2, 150, 150, 4, 2, 16, True, 0, 0.0, None, (1, 2), 1),      # GQA
+    (1, 140, 140, 6, 1, 8, True, 0, 0.0, None, (1, 4), 1),       # MQA
+    (1, 200, 200, 2, 2, 16, True, 70, 0.0, None, None, 1),       # window
+    (1, 130, 130, 4, 4, 8, True, 0, 50.0, None, None, 1),        # cap 50
+    (2, 150, 150, 4, 2, 8, False, 0, 0.0, 97, (1, 2), 2),        # kv_len
+    (1, 70, 200, 4, 2, 16, False, 0, 0.0, None, 1, 2),           # Sq != Sk
+    (1, 37, 37, 2, 1, 16, True, 5, 0.0, None, 1, 1),             # ragged
+    (1, 140, 140, 2, 1, 120, True, 0, 0.0, None, None, 1),       # Dh 120
+    (1, 150, 150, 4, 2, 160, True, 0, 0.0, None, (1, 1, 2), 1),  # Dh 160
+    (1, 130, 130, 2, 1, 256, True, 32, 0.0, None, (1, 1, 2), 1), # Dh 256
+    (1, 100, 330, 2, 1, 160, False, 0, 0.0, None, None, 3),      # 3 slabs
+]
+FUSED_TOL = 1e-5
+
+
+def _jax_grads(q, k, v, do, kv_len, **kw):
+    """``jax.grad`` of the reference: its oracle with ``kv_len`` in its own
+    (B, H, S, Dh) layout, else ``ops.attend`` (its custom_vjp's oracle)."""
+    if kv_len is not None:
+        def t(x):
+            return jnp.transpose(x, (0, 2, 1, 3))
+        return jax.grad(lambda *x: jnp.sum(t(jref(
+            *(t(y) for y in x), kv_len=kv_len, **kw)) * do),
+            argnums=(0, 1, 2))(q, k, v)
+    return jax.grad(lambda *x: jnp.sum(jattend(
+        *x, bq=64, bk=64, use_pallas=False, **kw) * do),
+        argnums=(0, 1, 2))(q, k, v)
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_order_backward_matches_jax_grad(case):
+    B, Sq, Sk, H, KV, Dh, causal, window, cap, kv_len, per, slabs = case
+    q, k, v, do = _inputs(9, B, Sq, Sk, H, KV, Dh)
+    kw = dict(causal=causal, window=window, cap=cap)
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = flash_attention_fwd_ref(qt, kt, vt, kv_len=kv_len, **kw)
+    got = flash_attention_bwd_fused_ref(qt, kt, vt, o, lse, dot,
+                                        kv_len=kv_len, per=per,
+                                        slabs=slabs, **kw)
+    want = _jax_grads(q, k, v, do, kv_len, **kw)
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w),
+                                   rtol=FUSED_TOL, atol=FUSED_TOL,
+                                   err_msg=f"case {case}: d{name}")
+
+
+@pytest.mark.parametrize("Dh, tiles", [
+    (16, (128, 64, 16)), (32, (128, 64, 32)), (64, (128, 64, 64)),
+    (120, (128, 64, 128)), (128, (128, 64, 128)), (160, (64, 64, 192)),
+    (256, (64, 64, 256))])
+def test_bwd_tiles(Dh, tiles):
+    assert kernel.bwd_tiles(Dh) == tiles
+
+
+# (Sq, Sk, H, KV, Dh, causal, window, slabs): the training shapes of
+# chip_smoke.py at B 4 (StarCoder2-3B, RecurrentGemma-9B, Danube3,
+# StableLM-2, Gemma-2, Granite, Llama-4, Whisper's encoder, cross and
+# self, Qwen2-VL) and their dQ slabs
+TRAIN_PLANS = [(512, 512, 24, 2, 128, True, 0, 1),
+               (512, 512, 16, 1, 256, True, 2048, 1),
+               (512, 512, 32, 8, 120, True, 4096, 1),
+               (512, 512, 32, 8, 160, True, 0, 1),
+               (512, 512, 32, 16, 128, True, 4096, 1),
+               (512, 512, 16, 8, 64, True, 0, 1),
+               (512, 512, 40, 8, 128, True, 0, 1),
+               (1500, 1500, 16, 16, 64, False, 0, 3),
+               (500, 1500, 16, 16, 64, False, 0, 3),
+               (512, 512, 16, 16, 64, True, 0, 1),
+               (512, 512, 64, 8, 128, True, 0, 1)]
+
+
+@pytest.mark.parametrize("shape", TRAIN_PLANS)
+def test_plan_at_the_training_shapes(shape):
+    """Non-causal shapes spread their 12 key tiles over 3 dQ slabs, causal
+    ones take one; the scratch holds the head chunks' dK, dV sums wherever
+    a group has more than one head (the kernel splits StarCoder2-3B's and
+    RecurrentGemma-9B's over blocks by the card's SMs), and sems has one
+    int per (slab, b, h, query tile), per (b, kv head, key tile) and the
+    fault word."""
+    Sq, Sk, H, KV, Dh, causal, window, slabs = shape
+    assert kernel.bwd_slabs(Sk, Dh, causal, window) == slabs
+    q = torch.empty((4, Sq, H, Dh), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((4, Sk, KV, Dh), dtype=torch.bfloat16, device="meta")
+    got = kernel.bwd_scratch(q, k, slabs)
+    kt, qt, width = kernel.bwd_tiles(Dh)
+    nq, nkt = -(-Sq // qt), -(-Sk // kt)
+    assert got["sems"].shape == (slabs * 4 * H * nq + 4 * KV * nkt + 1,)
+    assert got["dq_acc"].shape == (slabs, 4, H, nq, qt * width)
+    assert (got["kv_acc"] is None) == (H == KV)
+
+
+# (dtype, B, Sq, Sk, H, KV, Dh)
+SCRATCH_CASES = [(torch.bfloat16, 1, 64, 64, 6, 1, 16),
+                 (torch.bfloat16, 2, 100, 130, 4, 2, 160),
+                 (torch.bfloat16, 4, 512, 512, 32, 8, 120),
+                 (torch.float32, 2, 70, 150, 4, 2, 96)]
+
+
+@pytest.mark.parametrize("case", SCRATCH_CASES)
+def test_bwd_scratch_shapes(case):
+    """The wrapper's scratch: each row's (lse, D) over whole query tiles,
+    dQ's fp32 workspace a query tile a row in each slab, zeroed int32
+    semaphores (one per (slab, b, h, query tile), then per (b, kv head,
+    key tile), then the fault word), and the head chunks' dK, dV sums
+    wherever a group has more than one head; fp32: D alone."""
+    dt, B, Sq, Sk, H, KV, Dh = case
+    q = torch.empty((B, Sq, H, Dh), dtype=dt)
+    k = torch.empty((B, Sk, KV, Dh), dtype=dt)
+    slabs = kernel.bwd_slabs(Sk, Dh, True, 0)
+    got = kernel.bwd_scratch(q, k, slabs)
+    if dt == torch.float32:
+        assert got["rows"].shape == (B, H, Sq)
+        assert got["rows"].dtype == torch.float32
+        assert got["dq_acc"] is got["sems"] is got["kv_acc"] is None
+        return
+    kt, qt, width = kernel.bwd_tiles(Dh)
+    nq, nkt = -(-Sq // qt), -(-Sk // kt)
+    assert got["rows"].shape == (B, H, nq * qt, 2)
+    assert got["dq_acc"].shape == (slabs, B, H, nq, qt * width)
+    assert got["sems"].shape == (slabs * B * H * nq + B * KV * nkt + 1,)
+    assert got["sems"].dtype == torch.int32
+    assert not got["sems"].any()
+    for name in ("rows", "dq_acc"):
+        assert got[name].dtype == torch.float32
+    if H > KV:
+        assert got["kv_acc"].shape == (B, KV, nkt, 2, kt * width)
+        assert got["kv_acc"].dtype == torch.float32
+    else:
+        assert got["kv_acc"] is None
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_backward_binding_launches_once_a_call(dt, monkeypatch):
+    """Through a stand-in library: one launch counted a call, the scratch
+    handed over (NULL where the dtype takes none), the dQ slabs, the dtype
+    code and the current stream passed on."""
+    import contextlib
+    import types
+    calls = []
+
+    class Lib:
+        def repro_flash_attention_bwd(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(kernel, "bwd_library", Lib)
+    monkeypatch.setattr(kernel, "_check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(kernel, "bwd_launches", 0)
+    B, S, H, KV, Dh = 1, 64, 6, 1, 16
+    q = torch.zeros((B, S, H, Dh), dtype=dt)
+    k = torch.zeros((B, S, KV, Dh), dtype=dt)
+    lse = torch.zeros((B, H, S))
+    for n in (1, 2):
+        kernel.flash_attention_bwd(q, k, k, q, lse, q)
+        assert kernel.bwd_launches == n and len(calls) == n
+    args = calls[0]
+    scratch, slabs, dtype, stream = args[9:13], args[-3], args[-2], args[-1]
+    assert (slabs, stream) == (1, 7)
+    if dt == torch.bfloat16:
+        # 6 query heads a kv head: the dK/dV parts' scratch as well
+        assert dtype == 1 and all(ptr is not None for ptr in scratch)
+    else:
+        assert dtype == 0
+        assert scratch[0] is not None and scratch[1:] == (None,) * 3
