@@ -174,15 +174,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    copies of its inputs: no further from it than the plain bf16 version,
    or within 3e-2 of it), lru_scan at S 1, 33 and a D
    that TMA refuses, h0 or none, a cotangent on h_last, mixed dtypes,
-   wkv6 at T 1, 31, 32, 33, 512 with w = 0, N 8 and 16 and RWKV-6's (4,
-   512, 64, 64), each printing its route and its backward-kernel
-   launches; each backward's time at its training shape against its
+   wkv6 at T 1, 31, 32, 33, 512 with w = 0, N 8 and 16, fp32 fast decay
+   (w down to 1e-4) at N 64 and RWKV-6's (4, 512, 64, 64), each printing
+   its route and its backward-kernel launches (wkv6's backward binding
+   also against its route's plain version, ``ref.wkv6_bwd_plain``, on
+   the same inputs at every case, each output at its dtype's tolerance);
+   each backward's time at its training shape against its
    plain version's, SDPA's backward (flash) and a bound, the flash
    backward kernel alone at every arch's training shape beside SDPA's
    backward wherever SDPA computes the same function, the bound and two
    earlier kernels' times (constants: PERF.md), the lru_scan
    backward kernel alone beside a same-traffic elementwise op, and the
-   flash forward with and without its lse; (b) ``python -m
+   flash forward with and without its lse, and the wkv6 backward
+   binding alone with its split by kernel (torch.profiler); (b) ``python -m
    repro_torch.launch.train --arch starcoder2-3b --steps 3 --batch 4
    --seq 512`` as typed (full width and depth: 30 layers, d_model 3072,
    bf16, Adam): finite losses, ms per step and tokens/s after the first
@@ -641,6 +645,7 @@ WKV_TRAIN = (4, 512, 64, 64, torch.bfloat16)
 TRAIN_WKV = [((2, T, 4, 64, torch.float32), "zero")
              for T in (1, 31, 32, 33, 512)] + [
     ((2, 100, 4, 16, torch.bfloat16), "fast"),
+    ((2, 100, 4, 64, torch.float32), "fast"),
     ((2, 70, 4, 8, torch.float32), "zero"), (WKV_TRAIN, "reference")]
 # (b): the main path as a user types it; its flash launches per step (30
 # layers, forward and the checkpointed layer's recompute)
@@ -846,7 +851,6 @@ def profile_window(label: str, fn, by_stream: bool = False):
     ``by_stream``: also each CUDA stream's kernel time, named by the
     profiler ranges its kernels were launched from, and the busy share
     as the union of kernel intervals (two streams overlap); returned."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -855,12 +859,7 @@ def profile_window(label: str, fn, by_stream: bool = False):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict = {}
-    for e in prof.events():
-        # the runtime's profiler ranges (hts.*) show on the device side
-        # too; they are not kernels
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("hts."):
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    by_name = {n: sum(ts) for n, ts in kernel_events(prof).items()}
     busy_us = sum(by_name.values())
     if not busy_us:
         print(f"profile {label}: wall {wall_us / 1e3:.3f} ms; device time "
@@ -877,6 +876,44 @@ def profile_window(label: str, fn, by_stream: bool = False):
         f"{k} {t / 1e3:.3f} ms ({100 * t / busy_us:.1f}%)"
         for k, t in ours.items() if t) or "none"))
     return stream_times(label, prof, wall_us) if by_stream else None
+
+
+def kernel_events(prof) -> dict:
+    """Each kernel's device times (us) in a torch.profiler profile, by
+    kernel name. The runtime's profiler ranges (hts.*) show on the device
+    side too; they are not kernels and are left out."""
+    from torch.autograd import DeviceType
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("hts."):
+            out.setdefault(e.name, []).append(e.device_time_total)
+    return out
+
+
+def kernel_split(fn) -> dict:
+    """Device microseconds a launch of each kernel ``fn`` launches once a
+    call, by kernel name (without namespace or template arguments): the
+    mean over the kernel events torch.profiler kept of 50 calls after one
+    warm-up call; {} where it kept none (not measured). Late in a long
+    process the profiler keeps fewer of a short window's kernel events,
+    more so as the process ages; so the window is long, idle for 0.1 s at
+    each end, and a kernel's time is the mean of the events kept, not
+    their sum over the calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.1)
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    by_name: dict = {}
+    for name, ts in kernel_events(prof).items():
+        m = re.search(r"(\w+)[<(]", name)
+        by_name.setdefault(m.group(1) if m else name, []).extend(ts)
+    return {n: sum(ts) / len(ts) for n, ts in by_name.items()}
 
 
 def stream_times(label: str, prof, wall_us: float) -> dict:
@@ -1769,13 +1806,18 @@ def _bwd_entry(name: str, runs: dict, llm: dict) -> dict:
     t = llm["backward_times"][fwd]
     by_path = _path_launches(name, runs, llm)
     extra = {k: t[k] for k in ("function_ms", "plain_autograd_ms",
-                               "same_traffic_ms") if k in t}
+                               "same_traffic_ms", "binding_ms", "split_us",
+                               "bound_ms_cuda_cores") if k in t}
     err = max(row["max_abs_err"] for row in llm["backward"][fwd])
     if name == "lru_scan_bwd":
         # the kernel against its own plain version (lru_scan_bwd_ref); the
         # Function's against autograd of the plain forward beside it
         extra["launches_tma"] = sum(fam["lru_scan_bwd_tma"]
                                     for fam in llm["families"].values())
+        extra["function_max_abs_err"] = err
+        err = max(row["bwd_max_abs_err"] for row in llm["backward"][fwd])
+    if name == "wkv6_bwd":
+        # the binding against its route's plain version (wkv6_bwd_plain)
         extra["function_max_abs_err"] = err
         err = max(row["bwd_max_abs_err"] for row in llm["backward"][fwd])
     return {"name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -3314,12 +3356,50 @@ def _llm_backwards() -> dict:
         rows["lru_scan"].append(row)
     rows["flash_attention"] += [_kv_len_case(c, gen) for c in FLASH_KV_LEN]
     for case, decay in TRAIN_WKV:
-        rows["wkv6"].append(_grad_case(
+        inputs = list(wkv_inputs(case, gen, decay))
+        label = f"(B, T, H, N)={case[:4]} {case[4]} w {decay}"
+        row = _grad_case(
             "wkv6",
             lambda *x, use_kernel: wkv_ops.mix(*x, use_kernel=use_kernel),
-            list(wkv_inputs(case, gen, decay)),
-            f"(B, T, H, N)={case[:4]} {case[4]} w {decay}", gen))
+            inputs, label, gen)
+        row.update(_wkv_bwd_plain(inputs, label, gen))
+        rows["wkv6"].append(row)
     return rows
+
+
+def _wkv_bwd_plain(inputs, label: str, gen) -> dict:
+    """(a) for the wkv6 backward binding alone: its outputs against its
+    route's plain version (``ref.wkv6_bwd_plain``: the chunked route's
+    ``wkv6_chunked_bwd_ref`` or the recurrent route's
+    ``wkv6_recurrent_bwd_ref``) on the same inputs, each output at
+    TRAIN_GRAD_TOL of its own dtype (bf16 inputs: dr, dk, dv are rounded
+    to bf16, dw, du and ds0 are fp32 and held at fp32's), with the route
+    it took."""
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6.ref import wkv6_bwd_plain
+    r, k, v, w, u, s0 = inputs
+    do = torch.randn(r.shape, generator=gen, device="cuda").to(r.dtype)
+    ds_T = torch.randn(s0.shape, generator=gen, device="cuda")
+    _, T, _, N = r.shape
+    route = "chunked" if wk.chunked(T, N) else "recurrent"
+    got = wk.wkv6_bwd(r, k, v, w, u, s0, do, ds_T)
+    want = wkv6_bwd_plain(r, k, v, w, u, s0, do, ds_T)
+    torch.cuda.synchronize()
+    err = max((g.float() - p.float()).abs().max().item()
+              for g, p in zip(got, want))
+    ok = all(g.dtype == p.dtype and bool(torch.isfinite(g).all())
+             and torch.allclose(g.float(), p.float(),
+                                atol=TRAIN_GRAD_TOL[p.dtype],
+                                rtol=TRAIN_GRAD_TOL[p.dtype])
+             for g, p in zip(got, want))
+    print(f"llm_train (a) wkv6 backward kernel {label}: route {route}, vs "
+          f"its plain version max abs err {err:.3e} (allclose at each "
+          f"output's dtype's tolerance: "
+          + ", ".join(f"{n} {TRAIN_GRAD_TOL[p.dtype]}" for n, p in zip(
+              ("dr", "dk", "dv", "dw", "du", "ds0"), want))
+          + f"); ok {ok}")
+    check(ok, f"wkv6 backward kernel vs its plain version {label}")
+    return {"bwd_route": route, "bwd_max_abs_err": err, "bwd_ok": ok}
 
 
 def _lru_bwd_plain(a, b, h0, label: str, gen) -> dict:
@@ -3518,6 +3598,7 @@ def _bwd_times() -> dict:
     from repro_torch.kernels.lru_scan import ops as lru_ops
     from repro_torch.kernels.lru_scan.ref import (lru_scan_bwd_ref,
                                                   lru_scan_ref)
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
     from repro_torch.kernels.wkv6 import ops as wkv_ops
     from repro_torch.kernels.wkv6.ref import wkv6_ref
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -3595,11 +3676,31 @@ def _bwd_times() -> dict:
     Bw, T, Hw, N, _ = WKV_TRAIN
     # inputs and both cotangents read, every input's gradient written;
     # the least FLOP counted as twice the forward's (each forward product
-    # has two gradient products)
-    bd = bound(2 * nbytes(r, kk, vv, w, u, s0) + nbytes(r, s0),
-               2 * Bw * Hw * T * (5 * N * N + 5 * N), torch.float32)
+    # has two gradient products), at the rate of the units that do them as
+    # in wkv_times: TF32 tensor cores for the chunked route, the CUDA cores
+    # for the recurrent one; the CUDA-core reading is kept beside it (the
+    # bound earlier slices reported)
+    n_bytes, n_ops = (2 * nbytes(r, kk, vv, w, u, s0) + nbytes(r, s0),
+                      2 * Bw * Hw * T * (5 * N * N + 5 * N))
+    bd = bound(n_bytes, n_ops,
+               "tf32" if wkv_kernel.chunked(T, N) else torch.float32)
+    cuda_cores = bound(n_bytes, n_ops, torch.float32)["bound_ms"]
+    # the binding alone, and its time by kernel
+    do = torch.randn(r.shape, generator=gen, device="cuda").to(r.dtype)
+    ds_T = torch.randn(s0.shape, generator=gen, device="cuda")
+
+    def binding():
+        return wkv_kernel.wkv6_bwd(r, kk, vv, w, u, s0, do, ds_T)
+    b_ms = cuda_ms(binding, 10, 2)
+    split = kernel_split(binding)
+    print(f"  wkv6 backward binding {[Bw, T, Hw, N]}: {b_ms:.4f} ms; by "
+          "kernel (us a launch, torch.profiler): "
+          + (", ".join(f"{n} {us:.1f}" for n, us in sorted(
+              split.items(), key=lambda kv: -kv[1])) or "not measured"))
     out["wkv6"] = {"shape": [Bw, T, Hw, N], "ms": k_ms, "plain_ms": p_ms,
-                   "library_ms": None, **bd}
+                   "library_ms": None, "binding_ms": b_ms,
+                   "split_us": split, "bound_ms_cuda_cores": cuda_cores,
+                   **bd}
     for name, row in out.items():
         lib = ("n/a" if row["library_ms"] is None
                else f"{row['library_ms']:.4f} ms")
@@ -3607,7 +3708,10 @@ def _bwd_times() -> dict:
               f"{row['ms']:.4f} ms, plain version's backward "
               f"{row['plain_ms']:.4f} ms, library {lib}; bound "
               f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
-              f"({row['bytes']} bytes, {row['ops']} FLOP)")
+              f"({row['bytes']} bytes, {row['ops']} FLOP"
+              + (f"; {row['bound_ms_cuda_cores']:.4f} ms at the CUDA cores' "
+                 "67 TFLOP/s fp32" if "bound_ms_cuda_cores" in row else "")
+              + ")")
     return out
 
 

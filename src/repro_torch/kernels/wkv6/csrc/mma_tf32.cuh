@@ -1,6 +1,6 @@
 // Pieces shared by the WKV6 kernels (wkv6.cu, the forward; wkv6_bwd.cu, the
 // backward): dtype conversions, the 3xTF32 tile product on the tensor cores
-// (mma.sync m16n8k8) and the SFU's 2^x.
+// (mma.sync m16n8k8), cp.async and the SFU's 2^x.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -46,11 +46,12 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 
 // c[nt] (16 x 8) += A (16 x 8 KSTEPS) B (8 KSTEPS x 8 NT, columns 8 nt..)
 // in 3xTF32; a_at(i, kk) and b_at(kk, j) give the fp32 operands, each A
-// fragment loaded once for the NT tiles. B_EXACT: every B value is exact in
-// TF32 (a bf16 input), so its low part is zero and that product is skipped.
-// The small products go to their own accumulator, added at the end: two
-// independent chains of MMAs instead of one.
-template <int KSTEPS, int NT, bool B_EXACT, class FA, class FB>
+// fragment loaded once for the NT tiles. A_EXACT, B_EXACT: every A (B)
+// value is exact in TF32 (a bf16 input), so its low part is zero and the
+// product with it is skipped. The small products go to their own
+// accumulator, added at the end: two independent chains of MMAs instead
+// of one.
+template <int KSTEPS, int NT, bool A_EXACT, bool B_EXACT, class FA, class FB>
 __device__ __forceinline__ void tile_mma(float (&c)[NT][4], FA a_at, FB b_at) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   float d[NT][4] = {};
@@ -58,10 +59,17 @@ __device__ __forceinline__ void tile_mma(float (&c)[NT][4], FA a_at, FB b_at) {
   for (int ks = 0; ks < KSTEPS; ++ks) {
     const int kk = 8 * ks + q;
     uint32_t ah[4], al[4];
-    split_tf32(a_at(g, kk), ah[0], al[0]);
-    split_tf32(a_at(g + 8, kk), ah[1], al[1]);
-    split_tf32(a_at(g, kk + 4), ah[2], al[2]);
-    split_tf32(a_at(g + 8, kk + 4), ah[3], al[3]);
+    if (A_EXACT) {
+      ah[0] = __float_as_uint(a_at(g, kk));
+      ah[1] = __float_as_uint(a_at(g + 8, kk));
+      ah[2] = __float_as_uint(a_at(g, kk + 4));
+      ah[3] = __float_as_uint(a_at(g + 8, kk + 4));
+    } else {
+      split_tf32(a_at(g, kk), ah[0], al[0]);
+      split_tf32(a_at(g + 8, kk), ah[1], al[1]);
+      split_tf32(a_at(g, kk + 4), ah[2], al[2]);
+      split_tf32(a_at(g + 8, kk + 4), ah[3], al[3]);
+    }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       uint32_t bh0, bh1, bl0, bl1;
@@ -72,7 +80,7 @@ __device__ __forceinline__ void tile_mma(float (&c)[NT][4], FA a_at, FB b_at) {
         split_tf32(b_at(kk, 8 * nt + g), bh0, bl0);
         split_tf32(b_at(kk + 4, 8 * nt + g), bh1, bl1);
       }
-      mma_tf32(d[nt], al, bh0, bh1);
+      if (!A_EXACT) mma_tf32(d[nt], al, bh0, bh1);
       if (!B_EXACT) mma_tf32(d[nt], ah, bl0, bl1);
       mma_tf32(c[nt], ah, bh0, bh1);
     }
@@ -81,6 +89,14 @@ __device__ __forceinline__ void tile_mma(float (&c)[NT][4], FA a_at, FB b_at) {
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[nt][e] += d[nt][e];
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
 
 // 2^x for x <= 0 by the SFU alone (relative error ~2^-22; results below

@@ -141,14 +141,6 @@ constexpr float kLog2Zero = -200.f;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
 // Shared memory of one block, in floats (raw tiles in T). Row strides are
 // padded so the fragment loads hit distinct banks.
 template <typename T, int N>
@@ -361,7 +353,7 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
       const int mt = warp == 0 ? 0 : 1, a = warp == 0 ? 0 : warp - 1;
       const int t0 = 16 * mt, s0c = kSub * a;
       float acc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-      tile_mma<N / 8, 1, false>(
+      tile_mma<N / 8, 1, false, false>(
           acc,
           [&](int i, int n) {
             return sm.rhat[t0 + i][n] * sm.mid[a][(t0 + i) / kSub][n];
@@ -427,10 +419,10 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
       const int mt = warp / 2;
       const int t0 = 16 * mt, j0 = 8 * kONT * (warp % 2);
       float acc[kONT][4] = {};
-      tile_mma<kChunk / 8, kONT, kExactV>(
+      tile_mma<kChunk / 8, kONT, false, kExactV>(
           acc, [&](int i, int s) { return sm.A[t0 + i][s]; },
           [&](int s, int j) { return to_float(raw.v[s][j0 + j]); });
-      tile_mma<N / 8, kONT, false>(
+      tile_mma<N / 8, kONT, false, false>(
           acc,
           [&](int i, int n) {
             return sm.rhat[t0 + i][n] * sm.gR[(t0 + i) / kSub][n];
@@ -463,7 +455,7 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
         acc[nt][2] = d1 * Sreg[nt][2];
         acc[nt][3] = d1 * Sreg[nt][3];
       }
-      tile_mma<kChunk / 8, kSNT, kExactV>(
+      tile_mma<kChunk / 8, kSNT, false, kExactV>(
           acc,
           [&](int n, int s) {
             return sm.khat[s][s_n0 + n] * sm.gK[s / kSub][s_n0 + n];

@@ -13,9 +13,14 @@ through ``ref.py`` (see ``ops.mix``).
 A ``FakeTensor`` (the dry run) is checked the same way and gets its
 outputs allocated, with no launch.
 
-The backward, ``wkv6_bwd``, is a second library from ``csrc/wkv6_bwd.cu``
-(two state passes over the chunks, then each chunk's gradients), bound
-the same way; ``chunked`` picks its state passes' form too.
+The backward, ``wkv6_bwd``, is a second library from ``csrc/wkv6_bwd.cu``,
+bound the same way; ``chunked`` picks its route too. The chunked route
+runs both state passes in one launch, then one block per chunk computes
+every gradient in the chunk form: dr, dk and dv as products on the tensor
+cores, dw from those products and the pairs inside each sub-chunk; the
+recurrent route (T < 32, N = 8) runs the state passes step by step and
+every gradient by the step recurrence. Each route's plain version is in
+``ref.py`` (``wkv6_bwd_plain`` picks by the same rule).
 
 ``launches`` and ``bwd_launches`` count the forward's and the backward's
 launches in this process; callers that want to show a path went through
@@ -169,9 +174,10 @@ def wkv6_bwd(r, k, v, w, u, s0, do, ds_T):
     if not kernels.is_fake(r):
         _launch_bwd(r, k, v, w, u, s0, do, ds_T, *outs, states_s, states_g,
                     du_part)
-    # per (b, t, h): the two state passes' products (2 N^2 each) and the
-    # intra-chunk recurrence per state element: S twice (checkpoints and
-    # history), G, and the four sums into dk, dw, dr, dv
+    # per (b, t, h), the recurrent route's work, which bounds the chunked
+    # route's from above: the two state passes' products (2 N^2 each) and
+    # the recurrence per state element: S twice (checkpoints and history),
+    # G, and the four sums into dk, dw, dr, dv
     kernels.notify("wkv6_bwd", (r, k, v, w, u, s0, do, ds_T), outs,
                    flops=17.0 * B * T * H * N * N)
     return outs

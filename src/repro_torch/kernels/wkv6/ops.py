@@ -11,8 +11,9 @@ whose backward is the hand-written backward kernel
 (``kernel.wkv6_bwd``) on the saved inputs. The reference's
 ``custom_vjp`` differentiates its oracle
 (``repro/kernels/wkv6/ops.py:31-36``); the backward kernel computes the
-same gradients (its plain version, ``ref.wkv6_chunked_bwd_ref``, is held
-against the reference's ``jax.grad`` in the tests). The plain route's
+same gradients (its plain versions, ``ref.wkv6_chunked_bwd_ref`` and
+``ref.wkv6_recurrent_bwd_ref``, one a route, are held against the
+reference's ``jax.grad`` in the tests). The plain route's
 backward stays ``ref.wkv6_ref_vjp``.
 """
 from __future__ import annotations

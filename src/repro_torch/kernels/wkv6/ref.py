@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.wkv6.kernel import CHUNK, SUB
+from repro_torch.kernels.wkv6.kernel import CHUNK, SUB, chunked
 
 
 def _steps(s, rf, kf, vf, wf, uf):
@@ -121,6 +121,64 @@ def wkv6_ref(r, k, v, w, u, s0=None, chunk: int = 64):
     return _Wkv6Ref.apply(r, k, v, w, u, s0, chunk)
 
 
+def _powers(wc, C: int):
+    """One chunk's decay powers as the chunked kernels form them. ``wc``
+    (B, H, n, N) holds the chunk's n <= C decays; the chunk is padded to C
+    steps with w = 1. Returns ``pow2(i, j)`` = 2^{P[i] - P[j]} = the
+    product of w over the steps j .. i - 1 (i >= j), where P[t] sums log2 w
+    over the steps before t that have w > 0, and a power across a step with
+    w = 0 is 0 by its position (Z counts those steps): a huge log2 w in P
+    would cost every later exponent its low bits."""
+    n = wc.shape[2]
+    pad = (0, 0, 0, C - n)
+    lw = torch.nn.functional.pad(torch.log2(torch.where(wc == 0, 1.0, wc)),
+                                 pad)
+    P = torch.cat([torch.zeros_like(lw[:, :, :1]), lw.cumsum(2)], 2)
+    Z = torch.nn.functional.pad((wc == 0).int().cumsum(2), (0, 0, 1, C - n))
+    Z[:, :, n + 1:] = Z[:, :, n:n + 1]
+
+    def pow2(i, j):
+        e = P[:, :, i] - P[:, :, j]
+        return torch.exp2(e.masked_fill(Z[:, :, i] != Z[:, :, j],
+                                        -float("inf")))
+    return pow2
+
+
+def _pairs(pow2, b: int, L: int, dev):
+    """(B, H, L, L, N): 2^{P[t] - P[s+1]} for the pairs s < t of sub-chunk
+    b (t, s local), else 0: a diagonal block's factors, pair by pair."""
+    tt = torch.arange(L, device=dev)
+    lower = (tt[None, :] < tt[:, None])[None, None, :, :, None]
+    return torch.where(lower, pow2((L * b + tt)[:, None],
+                                   (L * b + 1 + tt)[None, :]), 0.0)
+
+
+def _chunk_A(rc, kc, uf, pow2, C: int, L: int):
+    """The forward's intra-chunk matrix A[t, s] = sum_n r_t k_s 2^{P[t] -
+    P[s+1]} for s < t, r_t . (u o k_t) on the diagonal, 0 above: blocks
+    between sub-chunks a < b factored about their boundaries, diagonal
+    blocks pair by pair."""
+    B, H, _, N = rc.shape
+    blk = torch.arange(C, device=rc.device) // L
+    rhat = rc * pow2(slice(0, C), L * blk)
+    khat = kc * pow2(L * (blk + 1), slice(1, C + 1))
+    A = torch.zeros((B, H, C, C), dtype=torch.float32, device=rc.device)
+    for b in range(C // L):
+        rows = slice(L * b, L * (b + 1))
+        for a in range(b):
+            cols = slice(L * a, L * (a + 1))
+            mid = pow2(L * b, L * (a + 1))
+            A[:, :, rows, cols] = torch.einsum(
+                "bhtn,bhsn->bhts", rhat[:, :, rows] * mid[:, :, None],
+                khat[:, :, cols])
+        A[:, :, rows, rows] = torch.einsum(
+            "bhtn,bhsn,bhtsn->bhts", rc[:, :, rows], kc[:, :, rows],
+            _pairs(pow2, b, L, rc.device))
+        A[:, :, rows, rows] += torch.diag_embed(
+            (rc[:, :, rows] * uf * kc[:, :, rows]).sum(-1))
+    return A
+
+
 def wkv6_chunked_ref(r, k, v, w, u, s0=None):
     """The same function in the chunked form of ``csrc/wkv6.cu``'s
     ``wkv6_chunked``, in plain PyTorch: it localises a fault of that
@@ -139,10 +197,9 @@ def wkv6_chunked_ref(r, k, v, w, u, s0=None):
     (2^{P[L b] - P[L(a+1)]}) (k_s 2^{P[L(a+1)] - P[s+1]}); a diagonal
     block is summed pair by pair. The naive split r_t 2^{P[t]} times
     k_s 2^{-P[s+1]} would overflow once -P passes 128. A step with w = 0
-    adds nothing to P and a power across it is 0, as the kernel does: a
-    huge log2 w in P would cost every later exponent its low bits. The
-    ragged last chunk is padded with r = k = v = 0 and w = 1. Same
-    arguments and returns as ``wkv6_ref``."""
+    adds nothing to P and a power across it is 0, as the kernel does
+    (``_powers``). The ragged last chunk is padded with r = k = v = 0 and
+    w = 1. Same arguments and returns as ``wkv6_ref``."""
     B, T, H, N = r.shape
     C, L = CHUNK, SUB
     dev = r.device
@@ -152,46 +209,13 @@ def wkv6_chunked_ref(r, k, v, w, u, s0=None):
     s = (torch.zeros((B, H, N, N), dtype=torch.float32, device=dev)
          if s0 is None else s0.float().clone())
     o = torch.empty((B, H, T, N), dtype=torch.float32, device=dev)
-    tt = torch.arange(L, device=dev)
-    lower = (tt[None, :] < tt[:, None])[None, None, :, :, None]   # s < t
-    blk = torch.arange(C, device=dev) // L
     for c0 in range(0, T, C):
         n = min(C, T - c0)
         pad = (0, 0, 0, C - n)
         rc, kc, vc = (torch.nn.functional.pad(x[:, :, c0:c0 + n], pad)
                       for x in (rf, kf, vf))
-        wc = wf[:, :, c0:c0 + n]
-        lw = torch.nn.functional.pad(
-            torch.log2(torch.where(wc == 0, 1.0, wc)), pad)
-        # P as above over the steps with w > 0; Z[t]: steps before t with w = 0
-        P = torch.cat([torch.zeros_like(lw[:, :, :1]), lw.cumsum(2)], 2)
-        Z = torch.nn.functional.pad((wc == 0).int().cumsum(2), (0, 0, 1, C - n))
-        Z[:, :, n + 1:] = Z[:, :, n:n + 1]
-
-        def pow2(i, j):
-            """2^{P[i] - P[j]} for i >= j; 0 where a step with w = 0 lies
-            between (Z differs)."""
-            e = P[:, :, i] - P[:, :, j]
-            return torch.exp2(e.masked_fill(Z[:, :, i] != Z[:, :, j],
-                                            -float("inf")))
-
-        rhat = rc * pow2(slice(0, C), L * blk)
-        khat = kc * pow2(L * (blk + 1), slice(1, C + 1))
-        A = torch.zeros((B, H, C, C), dtype=torch.float32, device=dev)
-        for b in range(C // L):
-            rows = slice(L * b, L * (b + 1))
-            for a in range(b):
-                cols = slice(L * a, L * (a + 1))
-                mid = pow2(L * b, L * (a + 1))
-                A[:, :, rows, cols] = torch.einsum(
-                    "bhtn,bhsn->bhts", rhat[:, :, rows] * mid[:, :, None],
-                    khat[:, :, cols])
-            pairs = torch.where(lower, pow2((L * b + tt)[:, None],
-                                            (L * b + 1 + tt)[None, :]), 0.0)
-            A[:, :, rows, rows] = torch.einsum(
-                "bhtn,bhsn,bhtsn->bhts", rc[:, :, rows], kc[:, :, rows], pairs)
-            A[:, :, rows, rows] += torch.diag_embed(
-                (rc[:, :, rows] * uf * kc[:, :, rows]).sum(-1))
+        pow2 = _powers(wf[:, :, c0:c0 + n], C)
+        A = _chunk_A(rc, kc, uf, pow2, C, L)
         oc = A @ vc + (rc * pow2(slice(0, C), [0])) @ s
         o[:, :, c0:c0 + n] = oc[:, :, :n]
         kdec = kc * pow2([C], slice(1, C + 1))
@@ -199,36 +223,16 @@ def wkv6_chunked_ref(r, k, v, w, u, s0=None):
     return o.transpose(1, 2).to(r.dtype), s
 
 
-def wkv6_chunked_bwd_ref(r, k, v, w, u, s0, do, ds_T):
-    """The plain version of the backward kernel (``csrc/wkv6_bwd.cu``), pass
-    for pass, in fp32: it localises a fault of that kernel, as
-    ``wkv6_chunked_ref`` does for the forward. With G_t the gradient of the
-    state after step t:
-
-        G_{t-1} = diag(w_t) G_t + r_t^T do_t                  (G_T = ds_T)
-        dr_t = do_t (S_{t-1} + diag(u) k_t^T v_t)^T
-        dk_t = G_t v_t + u o r_t (v_t . do_t)
-        dv_t = k_t G_t + (r_t . (u o k_t)) do_t
-        dw_t[n] = sum_m G_t[n, m] S_{t-1}[n, m]
-        du = sum_t r_t o k_t (v_t . do_t),   ds0 = G_{-1}
-
-    (a) each chunk's incoming state S_in, from s0, by the chunk products
+def _state_passes(kf, vf, rf, gf, wf, s, g, chunks):
+    """The backward's two state passes over the chunks, as products of w:
+    (a) each chunk's incoming state S_in, from s (s0 or zeros),
     S_out = diag(W) S_in + sum_s (k_s prod_{i>s} w_i)^T v_s; (b) each
-    chunk's outgoing gradient G_out, from ds_T, last chunk first, G_in =
-    diag(W) G_out + sum_s (r_s prod_{i<s} w_i)^T do_s (W the chunk's product
-    of w; every factor a product of w, so a step with w = 0 needs no
-    care); (c) inside each chunk the step recurrence from S_in and G_out.
-    Chunks of ``CHUNK`` steps, the last one ragged. Returns the binding's
-    outputs: (dr, dk, dv in r's dtype, dw fp32, du by batch row (B, H, N)
-    fp32, ds0 (B, H, N, N) fp32)."""
-    B, T, H, N = r.shape
-    C = CHUNK
-    # (B, H, T, N) fp32
-    rf, kf, vf, wf, gf = (t.float().transpose(1, 2) for t in
-                          (r, k, v, w, do))
-    uf = u.float()[None, :, None, :]
-    chunks = [slice(c0, min(c0 + C, T)) for c0 in range(0, T, C)]
-    s_in, s = [], _state0(r, s0)
+    chunk's outgoing state gradient G_out, from g (ds_T), last chunk
+    first, G_in = diag(W) G_out + sum_s (r_s prod_{i<s} w_i)^T do_s, with W
+    the chunk's product of w. Every factor is a product of w, so a step
+    with w = 0 needs no care. Returns (S_in list, G_out list, the first
+    chunk's G_in: the gradient of s0)."""
+    s_in = []
     for c in chunks:
         s_in.append(s)
         wc = wf[:, :, c]
@@ -236,7 +240,7 @@ def wkv6_chunked_bwd_ref(r, k, v, w, u, s0, do, ds_T):
                            torch.ones_like(wc[:, :, :1])], 2)  # prod_{i>s}
         s = (wc.prod(2)[..., None] * s
              + (kf[:, :, c] * after).transpose(2, 3) @ vf[:, :, c])
-    g_out, g = [None] * len(chunks), ds_T.float()
+    g_out = [None] * len(chunks)
     for i in reversed(range(len(chunks))):
         c = chunks[i]
         g_out[i] = g
@@ -245,6 +249,185 @@ def wkv6_chunked_bwd_ref(r, k, v, w, u, s0, do, ds_T):
                             wc[:, :, :-1].cumprod(2)], 2)      # prod_{i<s}
         g = (wc.prod(2)[..., None] * g
              + (rf[:, :, c] * before).transpose(2, 3) @ gf[:, :, c])
+    return s_in, g_out, g
+
+
+def _bwd_inputs(r, k, v, w, u, s0, do, ds_T):
+    """(B, H, T, N) fp32 views of r, k, v, w, do; u as (1, H, 1, N); the
+    chunks of ``CHUNK`` steps (the last one ragged); the state passes."""
+    rf, kf, vf, wf, gf = (t.float().transpose(1, 2) for t in
+                          (r, k, v, w, do))
+    uf = u.float()[None, :, None, :]
+    T = r.shape[1]
+    chunks = [slice(c0, min(c0 + CHUNK, T)) for c0 in range(0, T, CHUNK)]
+    passes = _state_passes(kf, vf, rf, gf, wf, _state0(r, s0),
+                           ds_T.float(), chunks)
+    return rf, kf, vf, wf, gf, uf, chunks, passes
+
+
+def _dw_chunk(rc, kc, gc, vc, D, s_in, g_out, pow2, e, kfac):
+    """dw over one chunk (padded to C steps) in the chunk form:
+
+        dw_t[n] = sum_m G_t[n, m] S_{t-1}[n, m],
+        S_{t-1} = 2^{P[t]} S_in + sum_{s<t} 2^{P[t]-P[s+1]} k_s^T v_s,
+        G_t = 2^{P[C]-P[t+1]} G_out + sum_{s'>t} 2^{P[s']-P[t+1]} r_{s'}^T do_{s'},
+
+    so dw_t is the sum of four parts: S_in with G_out (a row dot c), S_in
+    with the do_{s'} (Z = do S_in^T, dr's first product), the v_s with
+    G_out (Y = v G_out^T, dk's), and the pairs s < t < s' through D[s', s]
+    = do_{s'} . v_s. Each power is factored about the sub-chunk boundaries
+    (t in sub-chunk c, s in a <= c, s' in b >= c): between sub-chunks by
+    the boundary factors, so the sums over s and s' there are dr's and
+    dk's products between sub-chunks (M2, M1) and per-sub-chunk sums (RZ,
+    KY, Q); inside sub-chunk c pair by pair. No power divides by w: exact
+    at w = 0."""
+    B, H, C, N = rc.shape
+    L = SUB
+    nb = C // L
+    tt = torch.arange(C, device=rc.device)
+    blk = tt // L
+    re, kk = rc * e, kc * kfac
+    Z = gc @ s_in.transpose(2, 3)        # Z[s', n] = (S_in do_{s'})[n]
+    Y = vc @ g_out.transpose(2, 3)       # Y[s, n] = (G_out v_s)[n]
+    cS = (s_in * g_out).sum(-1)[:, :, None]
+    mid = {(a, b): pow2(L * b, L * (a + 1))[:, :, None]
+           for b in range(nb) for a in range(b)}
+    rows = [slice(L * b, L * (b + 1)) for b in range(nb)]
+    # between sub-chunks: M2[s'] = sum_{a < c(s')} mid (D_{s',a} kk_a),
+    # M1[s] = sum_{b > c(s)} mid (D_{b,s}^T re_b)
+    M1, M2 = torch.zeros_like(rc), torch.zeros_like(rc)
+    for b in range(nb):
+        for a in range(b):
+            Dba = D[:, :, rows[b], rows[a]]
+            M2[:, :, rows[b]] += mid[a, b] * (Dba @ kk[:, :, rows[a]])
+            M1[:, :, rows[a]] += mid[a, b] * (Dba.transpose(2, 3)
+                                              @ re[:, :, rows[b]])
+    RZ = [(re * Z)[:, :, r].sum(2, keepdim=True) for r in rows]
+    KY = [(kk * Y)[:, :, r].sum(2, keepdim=True) for r in rows]
+    dw = torch.zeros_like(rc)
+    for c in range(nb):
+        rw = rows[c]
+        ec, kc_, pre, suf = (e[:, :, rw], kfac[:, :, rw],
+                             pow2(L * c, 0)[:, :, None] * e[:, :, rw],
+                             pow2(C, L * (c + 1))[:, :, None] * kfac[:, :, rw])
+        late = sum((mid[c, b] * RZ[b] for b in range(c + 1, nb)),
+                   torch.zeros_like(cS))
+        early = sum((mid[a, c] * KY[a] for a in range(c)),
+                    torch.zeros_like(cS))
+        both = sum((mid[a, c] * mid[c, b] * (
+            kk[:, :, rows[a]].unsqueeze(2) * re[:, :, rows[b]].unsqueeze(3)
+            * D[:, :, rows[b], rows[a], None]).sum((2, 3))[:, :, None]
+            for a in range(c) for b in range(c + 1, nb)), torch.zeros_like(cS))
+        # pairs inside sub-chunk c: pr[t, s] = 2^{P[t] - P[s+1]}, s < t
+        pr = _pairs(pow2, c, L, rc.device)
+        rcc, kcc = rc[:, :, rw], kc[:, :, rw]
+        Db = D[:, :, rw, rw]
+        # sum_{s'>t} pr[s', t] x_{s'} and sum_{s<t} pr[t, s] x_s
+        after = lambda x: torch.einsum("bhutn,bhun->bhtn", pr, x)
+        before = lambda x: torch.einsum("bhtsn,bhsn->bhtn", pr, x)
+        triple = torch.einsum("bhtsn,bhutn,bhsn,bhun,bhus->bhtn", pr, pr,
+                              kcc, rcc, Db)
+        dw[:, :, rw] = (
+            pre * suf * cS
+            + pre * (kc_ * late + after(rcc * Z[:, :, rw]))
+            + suf * (ec * early + before(kcc * Y[:, :, rw]))
+            + ec * kc_ * both + kc_ * before(kcc * M1[:, :, rw])
+            + ec * after(rcc * M2[:, :, rw]) + triple)
+    return dw
+
+
+def _bwd_outputs(r, dr, dk, dv, dw, du_rows, ds0):
+    back = [x.transpose(1, 2) for x in (dr, dk, dv, dw)]
+    return (*(x.to(r.dtype).contiguous() for x in back[:3]),
+            back[3].contiguous(), du_rows, ds0)
+
+
+def wkv6_chunked_bwd_ref(r, k, v, w, u, s0, do, ds_T):
+    """The plain version of the backward kernel's chunked route
+    (``csrc/wkv6_bwd.cu``, ``kernel.chunked``: T >= 32 and N >= 16), pass
+    for pass, in fp32: it localises a fault of that kernel, as
+    ``wkv6_chunked_ref`` does for the forward. With G_t the gradient of the
+    state after step t, G_{t-1} = diag(w_t) G_t + r_t^T do_t (G_T = ds_T):
+
+        dr_t = do_t (S_{t-1} + diag(u) k_t^T v_t)^T
+        dk_t = G_t v_t + u o r_t (v_t . do_t)
+        dv_t = k_t G_t + (r_t . (u o k_t)) do_t
+        dw_t[n] = sum_m G_t[n, m] S_{t-1}[n, m]
+        du = sum_t r_t o k_t (v_t . do_t),   ds0 = G_{-1}
+
+    (a), (b): the state passes (``_state_passes``). (c): per chunk of C =
+    ``CHUNK`` steps, with P as in ``wkv6_chunked_ref``, D[t, s] = do_t .
+    v_s and A the forward's intra-chunk matrix, three gradients are chunk
+    products:
+
+        dr_t = 2^{P[t]} o (S_in do_t) + sum_{s<t} 2^{P[t]-P[s+1]} o k_s D[t,s]
+               + u o k_t D[t,t]
+        dk_t = 2^{P[C]-P[t+1]} o (G_out v_t)
+               + sum_{s>t} 2^{P[s]-P[t+1]} o r_s D[s,t] + u o r_t D[t,t]
+        dv_t = (k_t o 2^{P[C]-P[t+1]}) G_out + sum_{s>=t} A[s,t] do_s
+
+    each power factored about the sub-chunk boundaries as the forward's
+    (exponents <= 0; a pair inside a sub-chunk on its own), and dw from
+    the same pieces (``_dw_chunk``). The ragged last chunk is
+    padded with r = k = v = do = 0 and w = 1. Returns the binding's
+    outputs: (dr, dk, dv in r's dtype, dw fp32, du by batch row (B, H, N)
+    fp32, ds0 (B, H, N, N) fp32)."""
+    C, L = CHUNK, SUB
+    nb = C // L
+    rf, kf, vf, wf, gf, uf, chunks, (s_in, g_out, ds0) = _bwd_inputs(
+        r, k, v, w, u, s0, do, ds_T)
+    dev = rf.device
+    dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
+    tt = torch.arange(C, device=dev)
+    blk = tt // L
+    for i, c in enumerate(chunks):
+        n = c.stop - c.start
+        pad = (0, 0, 0, C - n)
+        rc, kc, vc, gc = (torch.nn.functional.pad(x[:, :, c], pad)
+                          for x in (rf, kf, vf, gf))
+        pow2 = _powers(wf[:, :, c], C)
+        e = pow2(tt, L * blk)                        # 2^{P[t] - P[L b(t)]}
+        kfac = pow2(L * (blk + 1), tt + 1)           # 2^{P[L (b+1)] - P[t+1]}
+        D = gc @ vc.transpose(2, 3)                  # D[t, s] = do_t . v_s
+        Dd = torch.diagonal(D, dim1=2, dim2=3)[..., None]
+        drc = pow2(tt, [0]) * (gc @ s_in[i].transpose(2, 3)) + uf * kc * Dd
+        dkc = (pow2([C], tt + 1) * (vc @ g_out[i].transpose(2, 3))
+               + uf * rc * Dd)
+        for b in range(nb):
+            rows = slice(L * b, L * (b + 1))
+            for a in range(b):      # s in sub-chunk a, t in b: dr_t
+                cols = slice(L * a, L * (a + 1))
+                mid = pow2(L * b, L * (a + 1))[:, :, None]
+                drc[:, :, rows] += e[:, :, rows] * mid * (
+                    D[:, :, rows, cols] @ (kc * kfac)[:, :, cols])
+                dkc[:, :, cols] += kfac[:, :, cols] * mid * (
+                    D[:, :, rows, cols].transpose(2, 3)
+                    @ (rc * e)[:, :, rows])
+            pairs = _pairs(pow2, b, L, dev)
+            Db = D[:, :, rows, rows]
+            drc[:, :, rows] += torch.einsum("bhts,bhsn,bhtsn->bhtn", Db,
+                                            kc[:, :, rows], pairs)
+            dkc[:, :, rows] += torch.einsum("bhts,bhtn,bhtsn->bhsn", Db,
+                                            rc[:, :, rows], pairs)
+        A = _chunk_A(rc, kc, uf, pow2, C, L)
+        dvc = ((kc * pow2([C], tt + 1)) @ g_out[i]
+               + A.transpose(2, 3) @ gc)
+        dwc = _dw_chunk(rc, kc, gc, vc, D, s_in[i], g_out[i], pow2, e, kfac)
+        dr[:, :, c], dk[:, :, c], dv[:, :, c], dw[:, :, c] = (
+            x[:, :, :n] for x in (drc, dkc, dvc, dwc))
+    du_rows = (rf * kf * (vf * gf).sum(-1, keepdim=True)).sum(2)
+    return _bwd_outputs(r, dr, dk, dv, dw, du_rows, ds0)
+
+
+def wkv6_recurrent_bwd_ref(r, k, v, w, u, s0, do, ds_T):
+    """The plain version of the backward kernel's recurrent route (``not
+    kernel.chunked``: T < 32 or N = 8), pass for pass: the state passes,
+    then inside each chunk the step recurrence from S_in and G_out for
+    every gradient, each state element on its own. Same arguments and
+    returns as ``wkv6_chunked_bwd_ref``; the formulas are in its
+    docstring."""
+    rf, kf, vf, wf, gf, uf, chunks, (s_in, g_out, _) = _bwd_inputs(
+        r, k, v, w, u, s0, do, ds_T)
     dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
     for i, c in enumerate(chunks):
         s, hist = s_in[i], []
@@ -268,6 +451,12 @@ def wkv6_chunked_bwd_ref(r, k, v, w, u, s0, do, ds_T):
     dk = dk + uf * rf * vd
     dv = dv + (rf * uf * kf).sum(-1, keepdim=True) * gf
     du_rows = (rf * kf * vd).sum(2)
-    back = [x.transpose(1, 2) for x in (dr, dk, dv, dw)]
-    return (*(x.to(r.dtype).contiguous() for x in back[:3]),
-            back[3].contiguous(), du_rows, ds0)
+    return _bwd_outputs(r, dr, dk, dv, dw, du_rows, ds0)
+
+
+def wkv6_bwd_plain(r, k, v, w, u, s0, do, ds_T):
+    """The plain version of the route the backward binding takes at this
+    T and N (``kernel.chunked``)."""
+    _, T, _, N = r.shape
+    route = wkv6_chunked_bwd_ref if chunked(T, N) else wkv6_recurrent_bwd_ref
+    return route(r, k, v, w, u, s0, do, ds_T)

@@ -1,15 +1,18 @@
 """The wkv6 backward kernel's plain version and the ``Function`` around
 both kernels.
 
-``wkv6_chunked_bwd_ref`` (the plain version of ``csrc/wkv6_bwd.cu``, pass
-for pass: the chunk states, the reverse state pass, each chunk's step
-recurrence) against ``jax.grad`` of the reference's
+``wkv6_chunked_bwd_ref`` (the plain version of ``csrc/wkv6_bwd.cu``'s
+chunked route, pass for pass: the two state passes, then dr, dk, dv and dw
+in the chunk form) against ``jax.grad`` of the reference's
 ``ops.mix(use_pallas=False)`` (its ``custom_vjp`` differentiates that
-oracle) at T in {1, 16, 31, 32, 33, 64}, with and without s0, with a
-fifth of the w at 0 and with fast decay down to 1e-4. ``Wkv6`` through
-its CUDA branch with both bindings stood in by their plain versions; the
-backward binding's fake route. Inputs from numpy seeds, fp32, at
-``tests/test_kernels.py``'s 1e-4.
+oracle) at T in {1, 16, 31, 32, 33, 64}, with and without s0, with a fifth
+of the w at 0 and with fast decay down to 1e-4, and the recurrent route's
+(``wkv6_recurrent_bwd_ref``, the elementwise step recurrence) on the same
+cases; both routes' plain versions at N = 16 and a ragged T of 70 with
+w = 0, and the rule that picks one. ``Wkv6`` through its CUDA branch with
+both bindings stood in by their plain versions; the backward binding's
+fake route. Inputs from numpy seeds, fp32, at ``tests/test_kernels.py``'s
+1e-4.
 """
 import numpy as np
 import pytest
@@ -21,8 +24,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.wkv6.ops import mix as jmix  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.wkv6 import kernel, ops  # noqa: E402
-from repro_torch.kernels.wkv6.ref import (wkv6_chunked_bwd_ref,  # noqa: E402
-                                          wkv6_ref)
+from repro_torch.kernels.wkv6.ref import (  # noqa: E402
+    wkv6_bwd_plain, wkv6_chunked_bwd_ref, wkv6_recurrent_bwd_ref, wkv6_ref)
 
 TOL = 1e-4
 
@@ -46,14 +49,12 @@ def _inputs(seed, B, T, H, N, decay):
     return (r, k, v, w, u, s0), do, ds_T
 
 
-@pytest.mark.parametrize("decay", ["reference", "zero", "fast"])
-@pytest.mark.parametrize("with_s0", [True, False])
-@pytest.mark.parametrize("T", [1, 16, 31, 32, 33, 64])
-def test_plain_backward_matches_jax_grad(T, with_s0, decay):
-    args, do, ds_T = _inputs(T, 2, T, 2, 8, decay)
+def _against_jax_grad(plain, args, do, ds_T, with_s0):
+    """``plain``'s gradients against ``jax.grad`` of the reference's
+    oracle, at TOL."""
     if not with_s0:
         args = args[:5] + (None,)
-    dr, dk, dv, dw, du_rows, ds0 = wkv6_chunked_bwd_ref(
+    dr, dk, dv, dw, du_rows, ds0 = plain(
         *(None if x is None else torch.from_numpy(x) for x in args),
         torch.from_numpy(do), torch.from_numpy(ds_T))
     got = [dr, dk, dv, dw, du_rows.sum(0)] + ([ds0] if with_s0 else [])
@@ -64,6 +65,51 @@ def test_plain_backward_matches_jax_grad(T, with_s0, decay):
     for i, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL,
                                    atol=TOL, err_msg=f"input {i}")
+
+
+# each decay with each route's plain version: the chunked route's under the
+# decay's own id, the recurrent route's (the one the binding takes at this
+# N of 8) under the decay's id and "recurrent"
+DECAY_PLAIN = [pytest.param(decay, plain, id=decay + suffix)
+               for plain, suffix in ((wkv6_chunked_bwd_ref, ""),
+                                     (wkv6_recurrent_bwd_ref, "-recurrent"))
+               for decay in ("reference", "zero", "fast")]
+
+
+@pytest.mark.parametrize("decay,plain", DECAY_PLAIN)
+@pytest.mark.parametrize("with_s0", [True, False])
+@pytest.mark.parametrize("T", [1, 16, 31, 32, 33, 64])
+def test_plain_backward_matches_jax_grad(T, with_s0, decay, plain):
+    args, do, ds_T = _inputs(T, 2, T, 2, 8, decay)
+    _against_jax_grad(plain, args, do, ds_T, with_s0)
+
+
+@pytest.mark.parametrize("with_s0", [True, False])
+@pytest.mark.parametrize("plain", [wkv6_chunked_bwd_ref,
+                                   wkv6_recurrent_bwd_ref],
+                         ids=["chunked", "recurrent"])
+def test_each_route_plain_version_at_n16(plain, with_s0):
+    """Each route's plain version at N = 16 (the chunked route's smallest
+    head), a ragged T of 70 (two whole chunks and 6 steps) and a fifth of
+    the w at 0."""
+    args, do, ds_T = _inputs(70, 2, 70, 2, 16, "zero")
+    _against_jax_grad(plain, args, do, ds_T, with_s0)
+
+
+@pytest.mark.parametrize("T,N,route", [(70, 16, "chunked"),
+                                       (32, 64, "chunked"),
+                                       (31, 16, "recurrent"),
+                                       (70, 8, "recurrent")])
+def test_plain_route_follows_the_binding_rule(T, N, route):
+    """``wkv6_bwd_plain`` takes the route ``kernel.chunked`` names, the one
+    the binding launches."""
+    assert kernel.chunked(T, N) == (route == "chunked")
+    args, do, ds_T = _inputs(T, 1, T, 1, N, "zero")
+    ts = [torch.from_numpy(x) for x in (*args, do, ds_T)]
+    plain = (wkv6_chunked_bwd_ref if route == "chunked"
+             else wkv6_recurrent_bwd_ref)
+    for a, b in zip(wkv6_bwd_plain(*ts), plain(*ts)):
+        assert torch.equal(a, b)
 
 
 @pytest.fixture
